@@ -1,0 +1,243 @@
+"""Host-side point-cloud transforms of the S3DIS test path.
+
+Port of the transforms of ao_tpu/datasets/transform.py that the S3DIS
+PT-v2m2 configs name, with the same semantics (FNV-1a voxel
+hashing, train and test GridSample modes). Arrays stay numpy until
+``collate_fn``; randomness comes from a ``torch.Generator`` (the default
+one unless a transform is given its own).
+"""
+
+from __future__ import annotations
+
+import copy
+from collections.abc import Mapping, Sequence
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..utils.registry import Registry
+
+TRANSFORMS = Registry("transforms")
+
+
+def _uniform(lo, hi, n, generator):
+    # float64, so that a degenerate range [a, a] gives exactly a, as
+    # numpy's uniform does
+    u = torch.rand(n, generator=generator, dtype=torch.float64).numpy()
+    return lo + (hi - lo) * u
+
+
+@TRANSFORMS.register_module()
+class Collect:
+    """Select keys and concatenate ``*_keys`` groups into single arrays
+    (e.g. feat_keys=("coord", "color") -> data["feat"])."""
+
+    def __init__(self, keys, offset_keys_dict=None, **kwargs):
+        self.keys = (keys,) if isinstance(keys, str) else tuple(keys)
+        self.offset_keys = offset_keys_dict or dict(offset="coord")
+        self.concat_groups = {
+            name.replace("_keys", ""): tuple(v) for name, v in kwargs.items()
+        }
+
+    def __call__(self, data_dict):
+        out = {k: data_dict[k] for k in self.keys}
+        for name, src in self.offset_keys.items():
+            out[name] = np.array([data_dict[src].shape[0]], dtype=np.int64)
+        for name, keys in self.concat_groups.items():
+            out[name] = np.concatenate(
+                [np.asarray(data_dict[k], np.float32).reshape(
+                    data_dict[k].shape[0], -1) for k in keys],
+                axis=1,
+            )
+        return out
+
+
+@TRANSFORMS.register_module()
+class Copy:
+    def __init__(self, keys_dict=None):
+        self.keys_dict = keys_dict or dict(
+            coord="origin_coord", segment="origin_segment"
+        )
+
+    def __call__(self, data_dict):
+        for key, new_key in self.keys_dict.items():
+            v = data_dict[key]
+            data_dict[new_key] = (
+                v.copy() if isinstance(v, np.ndarray) else copy.deepcopy(v)
+            )
+        return data_dict
+
+
+@TRANSFORMS.register_module()
+class ToTensor:
+    """Canonicalise dtypes (int64 / float32); arrays stay numpy until
+    collate. The name is kept for config compatibility."""
+
+    def __call__(self, data):
+        if isinstance(data, str):
+            return data
+        if isinstance(data, int):
+            return np.array([data], dtype=np.int64)
+        if isinstance(data, float):
+            return np.array([data], dtype=np.float32)
+        if isinstance(data, np.ndarray):
+            if np.issubdtype(data.dtype, bool):
+                return data
+            if np.issubdtype(data.dtype, np.integer):
+                return data.astype(np.int64)
+            if np.issubdtype(data.dtype, np.floating):
+                return data.astype(np.float32)
+            return data
+        if isinstance(data, Mapping):
+            return {k: self(v) for k, v in data.items()}
+        if isinstance(data, Sequence):
+            return [self(v) for v in data]
+        raise TypeError(f"type {type(data)} cannot be converted")
+
+
+@TRANSFORMS.register_module()
+class NormalizeColor:
+    def __call__(self, data_dict):
+        if "color" in data_dict:
+            data_dict["color"] = data_dict["color"] / 127.5 - 1
+        return data_dict
+
+
+@TRANSFORMS.register_module()
+class CenterShift:
+    def __init__(self, apply_z=True):
+        self.apply_z = apply_z
+
+    def __call__(self, data_dict):
+        if "coord" in data_dict:
+            lo = data_dict["coord"].min(axis=0)
+            hi = data_dict["coord"].max(axis=0)
+            shift = np.array(
+                [
+                    (lo[0] + hi[0]) / 2,
+                    (lo[1] + hi[1]) / 2,
+                    lo[2] if self.apply_z else 0,
+                ]
+            )
+            data_dict["coord"] = data_dict["coord"] - shift
+        return data_dict
+
+
+@TRANSFORMS.register_module()
+class RandomScale:
+    def __init__(self, scale=None, anisotropic=False,
+                 generator: Optional[torch.Generator] = None):
+        self.scale = scale or [0.95, 1.05]
+        self.anisotropic = anisotropic
+        self.generator = generator
+
+    def __call__(self, data_dict):
+        if "coord" in data_dict:
+            scale = _uniform(self.scale[0], self.scale[1],
+                             3 if self.anisotropic else 1, self.generator)
+            data_dict["coord"] = data_dict["coord"] * scale
+        return data_dict
+
+
+@TRANSFORMS.register_module()
+class RandomFlip:
+    def __init__(self, p=0.5, generator: Optional[torch.Generator] = None):
+        self.p = p
+        self.generator = generator
+
+    def __call__(self, data_dict):
+        for axis in (0, 1):
+            if _uniform(0.0, 1.0, 1, self.generator)[0] < self.p:
+                if "coord" in data_dict:
+                    data_dict["coord"][:, axis] = -data_dict["coord"][:, axis]
+                if "normal" in data_dict:
+                    data_dict["normal"][:, axis] = -data_dict["normal"][:, axis]
+        return data_dict
+
+
+@TRANSFORMS.register_module()
+class GridSample:
+    """Voxel-hash grid sampling (reference: transform.py:770-896) with the
+    FNV-1a hash the S3DIS configs name.
+
+    train mode: keep one random point per voxel; test mode: emit
+    ``count.max()`` complementary fragments that jointly cover every point
+    (each with an ``index`` map back to the full scene). The hashing and
+    per-voxel selection follow ao_tpu's GridSample exactly, so both
+    packages voxelise a scene identically.
+    """
+
+    def __init__(
+        self,
+        grid_size=0.05,
+        hash_type="fnv",
+        mode="train",
+        keys=("coord", "color", "normal", "segment"),
+        return_discrete_coord=False,
+        generator: Optional[torch.Generator] = None,
+    ):
+        if hash_type != "fnv" or mode not in ("train", "test"):
+            raise ValueError(
+                f"GridSample supports hash_type='fnv' and modes train / test, "
+                f"got {hash_type!r}, {mode!r}")
+        self.grid_size = grid_size
+        self.mode = mode
+        self.keys = keys
+        self.return_discrete_coord = return_discrete_coord
+        self.generator = generator
+
+    def __call__(self, data_dict):
+        scaled = data_dict["coord"] / np.array(self.grid_size)
+        discrete = np.floor(scaled).astype(int)
+        discrete = discrete - discrete.min(0)
+        key = self.fnv_hash_vec(discrete)
+        idx_sort = np.argsort(key)
+        key_sorted = key[idx_sort]
+        _, count = np.unique(key_sorted, return_counts=True)
+        seg_starts = np.cumsum(np.insert(count, 0, 0)[:-1])
+
+        if self.mode == "train":
+            pick = torch.randint(
+                0, int(count.max()), (count.size,), generator=self.generator
+            ).numpy()
+            idx_unique = idx_sort[seg_starts + pick % count]
+            if self.return_discrete_coord:
+                data_dict["discrete_coord"] = discrete[idx_unique]
+            for key_name in self.keys:
+                data_dict[key_name] = data_dict[key_name][idx_unique]
+            return data_dict
+
+        fragments = []
+        for i in range(count.max()):
+            idx_part = idx_sort[seg_starts + i % count]
+            part = dict(index=idx_part)
+            if self.return_discrete_coord:
+                part["discrete_coord"] = discrete[idx_part]
+            for key_name, value in data_dict.items():
+                part[key_name] = value[idx_part] if key_name in self.keys else value
+            fragments.append(part)
+        return fragments
+
+    @staticmethod
+    def fnv_hash_vec(arr):
+        """FNV64-1A hash of integer coordinate rows."""
+        arr = arr.copy().astype(np.uint64, copy=False)
+        hashed = np.uint64(14695981039346656037) * np.ones(
+            arr.shape[0], dtype=np.uint64
+        )
+        for j in range(arr.shape[1]):
+            hashed *= np.uint64(1099511628211)
+            hashed = np.bitwise_xor(hashed, arr[:, j])
+        return hashed
+
+
+class Compose:
+    def __init__(self, cfg=None):
+        self.cfg = cfg if cfg is not None else []
+        self.transforms = [TRANSFORMS.build(dict(t)) for t in self.cfg]
+
+    def __call__(self, data_dict):
+        for t in self.transforms:
+            data_dict = t(data_dict)
+        return data_dict

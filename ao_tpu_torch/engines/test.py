@@ -1,0 +1,164 @@
+"""Whole-scene semantic-segmentation testing (port of the SemSegTester of
+ao_tpu/engines/test.py).
+
+Each scene is expanded by the dataset into TTA views and, per view, into
+complementary GridSample fragments. Fragments are batched ``fb`` at a
+time into one padded forward on the tester's device; softmax
+probabilities are added onto a full-resolution (n, K) accumulator on the
+host and the argmax is scored against the full-resolution labels.
+Per-scene votes are cached as ``<name>_pred.npy`` for resume.
+"""
+
+from __future__ import annotations
+
+import os
+import time
+
+import numpy as np
+import torch
+
+from ..datasets import build_dataset, collate_fn
+from ..models import build_model
+from ..models.point_transformer_v2.convert import load_jax_npz
+from ..utils import AverageMeter, Registry, get_root_logger, intersection_and_union
+
+TEST = Registry("test")
+
+
+def load_weights(path: str):
+    """A model ``state_dict`` from a torch ``.pt`` file (optionally under a
+    ``state_dict`` key) or from an ``.npz`` of JAX variables."""
+    if path.endswith(".npz"):
+        return load_jax_npz(path)
+    obj = torch.load(path, map_location="cpu", weights_only=True)
+    return obj.get("state_dict", obj)
+
+
+class TesterBase:
+    """Holds the model; builds it from ``cfg.model`` and loads ``cfg.weight``
+    unless a model is given."""
+
+    def __init__(self, cfg=None, verbose=True, device="cuda", model=None):
+        self.cfg = cfg
+        self.verbose = verbose
+        self.device = torch.device(device)
+        self.model = model
+
+    def setup(self, cfg):
+        self.cfg = cfg
+        self.logger = get_root_logger(
+            log_file=os.path.join(cfg.save_path, "test.log")
+        )
+        if self.model is None:
+            self.model = build_model(dict(cfg.model))
+            weight = cfg.get("weight") or os.path.join(
+                cfg.save_path, "model", "model_best.pt"
+            )
+            self.logger.info(f"Loading weights: {weight}")
+            self.model.load_state_dict(load_weights(weight))
+        self.model.to(self.device).eval()
+        self.save_path = cfg.save_path
+
+    @torch.inference_mode()
+    def forward(self, coord, feat, mask):
+        return self.model(coord, feat, mask)
+
+    @staticmethod
+    def batches(frags, pad_multiple, fb=8):
+        """Yield (fragments, padded batch) for every ``fb`` fragments, as
+        :meth:`vote_fragments` feeds them to the model."""
+        for i0 in range(0, len(frags), fb):
+            group = frags[i0 : i0 + fb]
+            yield group, collate_fn(
+                [{k: v for k, v in f.items() if k != "index"} for f in group],
+                pad_multiple=pad_multiple,
+            )
+
+    def vote_fragments(self, frags, n, num_classes, pad_multiple, fb=8):
+        """Softmax-vote fragments into a full-scene (n, K) accumulator,
+        ``fb`` fragments per padded forward. Returns (votes, [(B, N) of
+        every forward])."""
+        pred = np.zeros((n, num_classes), np.float32)
+        shapes = []
+        for group, batch in self.batches(frags, pad_multiple, fb):
+            logits = self.forward(
+                *(batch[k].to(self.device) for k in ("coord", "feat", "mask"))
+            )
+            probs = torch.softmax(logits.float(), dim=-1).cpu().numpy()
+            shapes.append(tuple(batch["mask"].shape))
+            for b, f in enumerate(group):
+                # valid rows are the first len(index) of each batch row
+                pred[f["index"]] += probs[b, : len(f["index"])]
+        return pred, shapes
+
+
+@TEST.register_module()
+class SemSegTester(TesterBase):
+    def __call__(self):
+        cfg = self.cfg
+        self.setup(cfg)
+        logger = self.logger
+        dataset = build_dataset(dict(cfg.data.test))
+        K = cfg.data.num_classes
+        ignore = cfg.data.get("ignore_index", -1)
+        pad_multiple = cfg.get("pad_multiple", 4096)
+        fb = int(cfg.get("test_fragments_per_batch", 8))
+
+        save_path = os.path.join(cfg.save_path, "result")
+        os.makedirs(save_path, exist_ok=True)
+        intersection_meter = AverageMeter()
+        union_meter = AverageMeter()
+        target_meter = AverageMeter()
+        scenes = []
+        for i in range(len(dataset)):
+            data_dict = dataset[i]
+            name = data_dict["name"]
+            segment = data_dict["segment"]
+            pred_save = os.path.join(save_path, f"{name}_pred.npy")
+            record = dict(name=name, fragments=len(data_dict["fragment_list"]))
+            if os.path.isfile(pred_save):
+                pred = np.load(pred_save)
+            else:
+                t0 = time.perf_counter()
+                pred, record["batches"] = self.vote_fragments(
+                    data_dict["fragment_list"], segment.shape[0], K,
+                    pad_multiple, fb,
+                )
+                record["seconds"] = time.perf_counter() - t0
+                np.save(pred_save, pred)
+            seg_pred = pred.argmax(-1)
+            inter, union, target = intersection_and_union(
+                seg_pred, segment, K, ignore
+            )
+            intersection_meter.update(inter)
+            union_meter.update(union)
+            target_meter.update(target)
+            scenes.append(record)
+            mask_v = union != 0
+            iou = inter[mask_v] / (union[mask_v] + 1e-10)
+            acc = inter.sum() / (target.sum() + 1e-10) if target.sum() > 0 else 1.0
+            m_iou = np.mean(intersection_meter.sum / (union_meter.sum + 1e-10))
+            logger.info(
+                f"Test: {name} [{i + 1}/{len(dataset)}] "
+                f"Acc {acc:.4f} mIoU {np.mean(iou) if len(iou) else 0:.4f} "
+                f"running mIoU {m_iou:.4f}"
+            )
+
+        inter = intersection_meter.sum
+        union = union_meter.sum
+        target = target_meter.sum
+        iou_class = inter / (union + 1e-10)
+        acc_class = inter / (target + 1e-10)
+        m_iou = float(np.mean(iou_class))
+        m_acc = float(np.mean(acc_class))
+        all_acc = float(inter.sum() / (target.sum() + 1e-10))
+        logger.info(
+            f"Val result: mIoU/mAcc/allAcc {m_iou:.4f}/{m_acc:.4f}/{all_acc:.4f}"
+        )
+        names = cfg.data.get("names", [str(i) for i in range(K)])
+        for i in range(K):
+            logger.info(
+                f"Class_{i}-{names[i]} Result: iou/accuracy "
+                f"{iou_class[i]:.4f}/{acc_class[i]:.4f}"
+            )
+        return dict(mIoU=m_iou, mAcc=m_acc, allAcc=all_acc, scenes=scenes)

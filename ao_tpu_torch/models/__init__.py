@@ -1,0 +1,3 @@
+from .builder import MODELS, build_model
+from . import default  # noqa: F401
+from .point_transformer_v2 import ptv2m2  # noqa: F401

@@ -1,0 +1,396 @@
+"""Point Transformer V2 (mode 2), eval forward (port of
+ao_tpu/models/point_transformer_v2/ptv2m2.py).
+
+Same data model as the JAX package: dense padded ``(B, N, ...)`` tensors
+with a bool mask, static per-stage point capacities, one neighbour graph
+per resolution shared by the encoder and decoder stages at it, and the
+same dispatch rules:
+
+* ``_slab_geometry``: on the card, stages with C <= 384 and N >= 2048 keep
+  their points Morton-sorted and build the window-restricted graph of
+  ``knn_self_presorted`` (half-window 256 rows); the TPU package's "backend
+  is tpu" test is "device is cuda" here.
+* the fused GVA kernel (K3) runs on the card for bf16 compute at
+  N >= 64; below that gate, and off the card, the unfused composition with
+  the reference's pad semantics runs.
+
+So the port on the CPU follows the JAX package's CPU path, and the port on
+the card follows its TPU path. Parameter names follow the reference torch
+model, so ``convert.from_jax_variables`` carries JAX weights across.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+import torch
+from torch import nn
+
+from ...ops.grid_pool import grid_pool, unpool_map
+from ...ops.gva import folded_params, gva_eval, gva_reference_eval, pack_coords
+from ...ops.interpolation import interpolation
+from ...ops.knn_spatial import knn_self_presorted, knn_self_spatial, morton_code
+from ..builder import MODELS
+from ..utils import DropPath, PointBatchNorm, dense
+
+# Below this point count one curve window covers (nearly) the whole cloud,
+# so a single probe is exact; above it, three probes.
+_SMALL_N = 1152
+# slab half-window in curve rows (the JAX package's AO_SLAB_W default)
+_SLAB_W = 256
+
+
+def _self_knn(coord, mask, k):
+    if coord.shape[1] <= _SMALL_N:
+        return knn_self_spatial(coord, mask, k=k, probes=1, exact_dist=False)
+    return knn_self_spatial(coord, mask, k=k, exact_dist=False)
+
+
+def _slab_geometry(C, N, S, device):
+    """Window geometry of the slab path for a stage, or None for the
+    gathered path. (TQ, J) are the TPU kernel's slab tiling; the kNN window
+    (tile_q, window, front) lies inside every covering slab:
+    window = 2W + 2TQ - tile_q, front = W - tile_q + TQ."""
+    if device.type != "cuda" or C > 384 or N < 2048:
+        return None
+    TQ = 128 if C <= 96 else (64 if C <= 192 else 32)
+    J = 2 * max(_SLAB_W // TQ, 1) + 1
+    W = (J - 1) // 2 * TQ
+    tile_q = 128 if TQ >= 64 else 64
+    return dict(TQ=TQ, J=J, W=W, tile_q=tile_q, window=2 * W + 2 * TQ - tile_q,
+                front=W - tile_q + TQ)
+
+
+class GroupedVectorAttention(nn.Module):
+    """PT-v2m2 GVA: pe-bias MLP, Dense weight encoding, masked softmax over
+    S neighbours per group. The PT-v2m1 / pe-multiplier variants are not
+    ported."""
+
+    def __init__(self, embed_channels, groups, attn_drop_rate=0.0,
+                 qkv_bias=True, pe_multiplier=False, pe_bias=True, dtype=None):
+        super().__init__()
+        if pe_multiplier or not pe_bias:
+            raise NotImplementedError("only the PT-v2m2 pe-bias GVA is ported")
+        C, G = embed_channels, groups
+        self.embed_channels, self.groups = C, G
+        self.attn_drop_rate = attn_drop_rate
+        self.dtype = dtype
+        self.linear_q = nn.Sequential(
+            nn.Linear(C, C, bias=qkv_bias), PointBatchNorm(C), nn.ReLU())
+        self.linear_k = nn.Sequential(
+            nn.Linear(C, C, bias=qkv_bias), PointBatchNorm(C), nn.ReLU())
+        self.linear_v = nn.Linear(C, C, bias=qkv_bias)
+        self.linear_p_bias = nn.Sequential(
+            nn.Linear(3, C), PointBatchNorm(C), nn.ReLU(), nn.Linear(C, C))
+        self.weight_encoding = nn.Sequential(
+            nn.Linear(C, G), PointBatchNorm(G), nn.ReLU(), nn.Linear(G, G))
+
+    def fused_ok(self, device) -> bool:
+        """The fused kernel covers bf16 compute without attention dropout,
+        on the card."""
+        return (device.type == "cuda" and self.dtype == torch.bfloat16
+                and self.attn_drop_rate == 0.0)
+
+    def raw_params(self):
+        """The pe / weight-encoding MLP parameters and running statistics
+        in the JAX package's (in, out) layout."""
+        p1, pbn, p2 = (self.linear_p_bias[i] for i in (0, 1, 3))
+        w1, wbn, w2 = (self.weight_encoding[i] for i in (0, 1, 3))
+        return dict(
+            Wp1=p1.weight.t(), bp1=p1.bias, gp=pbn.norm.weight,
+            bp=pbn.norm.bias, pe_mean=pbn.norm.running_mean,
+            pe_var=pbn.norm.running_var, Wp2=p2.weight.t(), bp2=p2.bias,
+            W1=w1.weight.t(), b1=w1.bias, gw=wbn.norm.weight,
+            bw=wbn.norm.bias, we_mean=wbn.norm.running_mean,
+            we_var=wbn.norm.running_var, W2=w2.weight.t(), b2=w2.bias,
+        )
+
+    def forward(self, feat, coord6, idx, idx_valid, mask, fused: bool):
+        dt = self.dtype
+        q = torch.relu(self.linear_q[1](dense(self.linear_q[0], feat, dt), mask))
+        k = torch.relu(self.linear_k[1](dense(self.linear_k[0], feat, dt), mask))
+        v = dense(self.linear_v, feat, dt)
+        p = self.raw_params()
+        if fused:
+            bf = torch.bfloat16
+            src = torch.cat([k.to(bf), v.to(bf), coord6], dim=-1)
+            qrow = torch.cat([q.to(bf), coord6, mask[..., None].to(bf)], dim=-1)
+            return gva_eval(src, qrow, idx, idx_valid, folded_params(p))
+        return gva_reference_eval(k, v, q, coord6, idx, idx_valid, mask, p,
+                                  dt or torch.float32)
+
+
+class Block(nn.Module):
+    def __init__(self, embed_channels, groups, qkv_bias=True,
+                 pe_multiplier=False, pe_bias=True, attn_drop_rate=0.0,
+                 drop_path_rate=0.0, dtype=None):
+        super().__init__()
+        C = embed_channels
+        self.dtype = dtype
+        self.attn = GroupedVectorAttention(
+            C, groups, attn_drop_rate, qkv_bias, pe_multiplier, pe_bias, dtype)
+        self.fc1 = nn.Linear(C, C, bias=False)
+        self.fc3 = nn.Linear(C, C, bias=False)
+        self.norm1 = PointBatchNorm(C)
+        self.norm2 = PointBatchNorm(C)
+        self.norm3 = PointBatchNorm(C)
+        self.drop_path = DropPath(drop_path_rate)
+
+    def forward(self, feat, coord6, idx, idx_valid, mask, fused):
+        identity = feat
+        h = torch.relu(self.norm1(dense(self.fc1, feat, self.dtype), mask))
+        h = self.attn(h, coord6, idx, idx_valid, mask, fused)
+        h = torch.relu(self.norm2(h, mask))
+        h = self.norm3(dense(self.fc3, h, self.dtype), mask)
+        h = torch.relu(identity + self.drop_path(h))
+        return torch.where(mask[..., None], h, 0.0)
+
+
+class BlockSequence(nn.Module):
+    def __init__(self, depth, embed_channels, groups, neighbours=16,
+                 qkv_bias=True, pe_multiplier=False, pe_bias=True,
+                 attn_drop_rate=0.0, drop_path_rates: Sequence[float] = (),
+                 dtype=None):
+        super().__init__()
+        self.embed_channels = embed_channels
+        self.neighbours = neighbours
+        rates = list(drop_path_rates) or [0.0] * depth
+        self.blocks = nn.ModuleList(
+            Block(embed_channels, groups, qkv_bias, pe_multiplier, pe_bias,
+                  attn_drop_rate, rates[i], dtype)
+            for i in range(depth)
+        )
+
+    def forward(self, feat, coord, mask, knn_cache=None,
+                force: Optional[dict] = None):
+        """Returns (feat, knn_cache). The cache holds this resolution's
+        neighbour graph (and, on the slab path, its Morton sort) for the
+        decoder stage at the same resolution.
+
+        ``force`` (tests only) sets the dispatch explicitly, as
+        ``dict(slab=<geometry dict or None>, fused=<bool>)``, so that the
+        card's path can be held against the JAX package on the CPU."""
+        N = coord.shape[1]
+        if force is not None:
+            slab = force["slab"]
+        else:
+            slab = _slab_geometry(self.embed_channels, N, self.neighbours,
+                                  coord.device)
+        if knn_cache is not None and knn_cache["slab"] == slab:
+            cache = knn_cache
+        else:
+            cache = dict(slab=slab, order=None, inv=None)
+            if slab is not None:
+                order = torch.argsort(morton_code(coord, mask), dim=1,
+                                      stable=True)
+                cache["order"] = order
+                cache["inv"] = torch.argsort(order, dim=1)
+                cache["coord"] = torch.gather(
+                    coord, 1, order[..., None].expand(-1, -1, 3))
+                cache["mask"] = torch.gather(mask, 1, order)
+                idx, _, idx_valid = knn_self_presorted(
+                    cache["coord"], cache["mask"], k=self.neighbours,
+                    tile_q=slab["tile_q"], window=slab["window"],
+                    front=slab["front"],
+                )
+            else:
+                cache["coord"], cache["mask"] = coord, mask
+                idx, _, idx_valid = _self_knn(coord, mask, self.neighbours)
+            cache["idx"], cache["idx_valid"] = idx, idx_valid
+            cache["coord6"] = pack_coords(cache["coord"])
+        mask_u = cache["mask"]
+        if force is not None:
+            fused = force["fused"]
+        else:
+            fused = all(b.attn.fused_ok(coord.device) for b in self.blocks)
+        fused = fused and N >= 64  # below: the reference's pad semantics
+        if cache["order"] is not None:
+            feat = torch.gather(
+                feat, 1, cache["order"][..., None].expand(-1, -1, feat.shape[-1]))
+        for blk in self.blocks:
+            feat = blk(feat, cache["coord6"], cache["idx"], cache["idx_valid"],
+                       mask_u, fused)
+        if cache["order"] is not None:
+            feat = torch.gather(
+                feat, 1, cache["inv"][..., None].expand(-1, -1, feat.shape[-1]))
+        return feat, cache
+
+
+class GridPool(nn.Module):
+    """fc -> BN -> ReLU, then grid pooling (mean coord / max feat)."""
+
+    def __init__(self, in_channels, out_channels, grid_size, bias=False):
+        super().__init__()
+        self.grid_size = grid_size
+        self.fc = nn.Linear(in_channels, out_channels, bias=bias)
+        self.norm = PointBatchNorm(out_channels)
+
+    def forward(self, feat, coord, mask, max_clusters):
+        h = torch.relu(self.norm(dense(self.fc, feat), mask))
+        # clusters beyond the static capacity merge into the last one
+        pc, pf, pm, cluster, _ = grid_pool(
+            coord, h, mask, self.grid_size, max_clusters)
+        return pc, pf, pm, cluster
+
+
+class UnpoolWithSkip(nn.Module):
+    """Map / interp unpooling with skip connection."""
+
+    def __init__(self, in_channels, skip_channels, out_channels, bias=True,
+                 skip=True, backend="map"):
+        super().__init__()
+        self.skip = skip
+        self.backend = backend
+        self.proj = nn.Sequential(nn.Linear(in_channels, out_channels, bias=bias),
+                                  PointBatchNorm(out_channels), nn.ReLU())
+        self.proj_skip = nn.Sequential(
+            nn.Linear(skip_channels, out_channels, bias=bias),
+            PointBatchNorm(out_channels), nn.ReLU())
+
+    def forward(self, feat, coord, mask, skip_feat, skip_coord, skip_mask,
+                cluster):
+        h = torch.relu(self.proj[1](dense(self.proj[0], feat), mask))
+        if self.backend == "map" and cluster is not None:
+            up = unpool_map(h, cluster, skip_mask)
+        else:
+            up = interpolation(coord, skip_coord, h, mask, skip_mask, k=3)
+        if self.skip:
+            s = torch.relu(self.proj_skip[1](
+                dense(self.proj_skip[0], skip_feat), skip_mask))
+            up = up + s
+        return torch.where(skip_mask[..., None], up, 0.0)
+
+
+class _Stage(nn.Module):
+    def __init__(self, **modules):
+        super().__init__()
+        for name, m in modules.items():
+            setattr(self, name, m)
+
+
+@MODELS.register_module("PT-v2m2")
+class PointTransformerV2(nn.Module):
+    """U-Net of grouped-vector-attention stages over grid-pooled resolutions.
+
+    ``stage_cap_ratios`` bound each pooled stage's static point capacity as
+    a fraction of the previous stage's. ``compute_dtype="bfloat16"`` runs
+    the attention blocks' activations in bf16; norms and the other layers
+    stay f32."""
+
+    def __init__(
+        self,
+        in_channels,
+        num_classes,
+        patch_embed_depth=1,
+        patch_embed_channels=48,
+        patch_embed_groups=6,
+        patch_embed_neighbours=8,
+        enc_depths=(2, 2, 6, 2),
+        enc_channels=(96, 192, 384, 512),
+        enc_groups=(12, 24, 48, 64),
+        enc_neighbours=(16, 16, 16, 16),
+        dec_depths=(1, 1, 1, 1),
+        dec_channels=(48, 96, 192, 384),
+        dec_groups=(6, 12, 24, 48),
+        dec_neighbours=(16, 16, 16, 16),
+        grid_sizes=(0.06, 0.12, 0.24, 0.48),
+        attn_qkv_bias=True,
+        pe_multiplier=False,
+        pe_bias=True,
+        attn_drop_rate=0.0,
+        drop_path_rate=0.0,
+        enable_checkpoint=False,  # activation remat: training only
+        unpool_backend="map",
+        stage_cap_ratios=(0.35, 0.35, 0.35, 0.35),
+        compute_dtype: Optional[str] = None,
+    ):
+        super().__init__()
+        S = len(enc_depths)
+        if not S == len(dec_depths) == len(grid_sizes):
+            raise ValueError("enc_depths, dec_depths and grid_sizes differ in length")
+        dtype = getattr(torch, compute_dtype) if compute_dtype else None
+        self.num_classes = num_classes
+        self.dec_neighbours = tuple(dec_neighbours)
+        self.stage_cap_ratios = tuple(stage_cap_ratios)
+
+        def linspace(total, n):
+            return [float(total)] * n if n <= 1 else [
+                total * i / (n - 1) for i in range(n)]
+
+        enc_dp = linspace(drop_path_rate, sum(enc_depths))
+        dec_dp = linspace(drop_path_rate, sum(dec_depths))
+        enc_ch = (patch_embed_channels,) + tuple(enc_channels)
+        dec_ch = tuple(dec_channels) + (enc_ch[-1],)
+        common = dict(qkv_bias=attn_qkv_bias, pe_multiplier=pe_multiplier,
+                      pe_bias=pe_bias, attn_drop_rate=attn_drop_rate,
+                      dtype=dtype)
+
+        self.patch_embed = _Stage(
+            proj=nn.Sequential(
+                nn.Linear(in_channels, patch_embed_channels, bias=False),
+                PointBatchNorm(patch_embed_channels), nn.ReLU()),
+            blocks=BlockSequence(patch_embed_depth, patch_embed_channels,
+                                 patch_embed_groups, patch_embed_neighbours,
+                                 **common),
+        )
+        self.enc_stages = nn.ModuleList()
+        self.dec_stages = nn.ModuleList()
+        for i in range(S):
+            e0, e1 = sum(enc_depths[:i]), sum(enc_depths[:i + 1])
+            d0, d1 = sum(dec_depths[:i]), sum(dec_depths[:i + 1])
+            self.enc_stages.append(_Stage(
+                down=GridPool(enc_ch[i], enc_ch[i + 1], grid_sizes[i]),
+                blocks=BlockSequence(enc_depths[i], enc_ch[i + 1],
+                                     enc_groups[i], enc_neighbours[i],
+                                     drop_path_rates=enc_dp[e0:e1], **common),
+            ))
+            self.dec_stages.append(_Stage(
+                up=UnpoolWithSkip(dec_ch[i + 1], enc_ch[i], dec_ch[i],
+                                  backend=unpool_backend),
+                blocks=BlockSequence(dec_depths[i], dec_ch[i], dec_groups[i],
+                                     dec_neighbours[i],
+                                     drop_path_rates=dec_dp[d0:d1], **common),
+            ))
+        if num_classes > 0:
+            self.seg_head = nn.Sequential(
+                nn.Linear(dec_ch[0], dec_ch[0]), PointBatchNorm(dec_ch[0]),
+                nn.ReLU(), nn.Linear(dec_ch[0], num_classes))
+
+    def stage_capacities(self, n: int):
+        """Static point capacity of every resolution for padded size n."""
+        caps = [n]
+        for r in self.stage_cap_ratios[:len(self.enc_stages)]:
+            caps.append(max(int(caps[-1] * r), 64))
+        return caps
+
+    def forward(self, coord, feat, mask):
+        caps = self.stage_capacities(coord.shape[1])
+        pe = self.patch_embed
+        h = torch.relu(pe.proj[1](dense(pe.proj[0], feat), mask))
+        h, knn0 = pe.blocks(h, coord, mask)
+
+        skips = [(coord, h, mask, knn0)]
+        clusters = []
+        for i, stage in enumerate(self.enc_stages):
+            coord, h, mask, cluster = stage.down(h, coord, mask, caps[i + 1])
+            h, knn_i = stage.blocks(h, coord, mask)
+            clusters.append(cluster)
+            skips.append((coord, h, mask, knn_i))
+
+        # decoder: reuses each skip resolution's cached graph
+        coord, h, mask, _ = skips.pop()
+        for i in reversed(range(len(self.dec_stages))):
+            skip_coord, skip_feat, skip_mask, skip_knn = skips.pop()
+            stage = self.dec_stages[i]
+            h = stage.up(h, coord, mask, skip_feat, skip_coord, skip_mask,
+                         clusters.pop())
+            coord, mask = skip_coord, skip_mask
+            if skip_knn["idx"].shape[-1] != self.dec_neighbours[i]:
+                skip_knn = None  # neighbour count differs; recompute
+            h, _ = stage.blocks(h, coord, mask, skip_knn)
+
+        if self.num_classes > 0:
+            g = dense(self.seg_head[0], h)
+            g = torch.relu(self.seg_head[1](g, mask))
+            return dense(self.seg_head[3], g)
+        return h

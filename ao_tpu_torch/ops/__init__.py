@@ -1,0 +1,13 @@
+from .knn import knn
+from .knn_spatial import (
+    knn_cross_spatial,
+    knn_self_presorted,
+    knn_self_spatial,
+    knn_window,
+    merge_topk,
+    morton_code,
+)
+from .grouping import grouping
+from .grid_pool import grid_pool, unpool_map
+from .interpolation import interpolation
+from .gva import gva_eval, pack_coords

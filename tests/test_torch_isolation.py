@@ -1,0 +1,65 @@
+"""ao_tpu_torch and chip_smoke.py stand alone: they import neither JAX nor
+ao_tpu, build no extension through torch.utils.cpp_extension, and the
+smoke script's slice phase runs end to end (on the CPU, at a tiny size)
+with JAX and ao_tpu made unimportable."""
+
+import os
+import re
+import subprocess
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_CHILD = r"""
+import sys
+sys.modules["jax"] = None
+sys.modules["ao_tpu"] = None
+import importlib, pkgutil
+import ao_tpu_torch
+for m in pkgutil.walk_packages(ao_tpu_torch.__path__, "ao_tpu_torch."):
+    importlib.import_module(m.name)
+import chip_smoke
+res, votes, n_views = chip_smoke.run_slice(
+    "cpu", 0, room_size=(1.0, 0.8, 0.5), views=1, pad_multiple=256)
+chip_smoke.check_votes(votes, n_views)
+assert not any(k == "jax" or k.startswith(("jax.", "ao_tpu.", "flax"))
+               for k, v in sys.modules.items() if v is not None)
+print("ISOLATED", res["scenes"][0]["fragments"])
+"""
+
+
+def test_port_runs_without_jax_or_ao_tpu(tmp_path):
+    env = dict(os.environ, PYTHONPATH=ROOT, TMPDIR=str(tmp_path))
+    res = subprocess.run(
+        [sys.executable, "-c", _CHILD], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=300,
+    )
+    assert res.returncode == 0, res.stderr[-4000:]
+    assert "ISOLATED" in res.stdout
+
+
+def test_port_sources_name_no_jax_no_ao_tpu_no_cpp_extension():
+    files = [os.path.join(ROOT, "chip_smoke.py")]
+    for d, _, names in os.walk(os.path.join(ROOT, "ao_tpu_torch")):
+        files += [os.path.join(d, n) for n in names
+                  if n.endswith((".py", ".cu", ".cuh"))]
+    bad = re.compile(r"cpp_extension|import jax|from jax|ao_tpu\.|import ao_tpu\b"
+                     r"|torch/extension\.h|import triton")
+    hits = []
+    for f in files:
+        with open(f) as fh:
+            for i, line in enumerate(fh, 1):
+                if bad.search(line):
+                    hits.append(f"{os.path.relpath(f, ROOT)}:{i}: {line.strip()}")
+    assert not hits, "\n".join(hits)
+
+
+def test_chip_smoke_refuses_to_run_without_a_card():
+    """Off the card the script exits non-zero and prints no result."""
+    res = subprocess.run(
+        [sys.executable, os.path.join(ROOT, "chip_smoke.py")], cwd=ROOT,
+        capture_output=True, text=True, timeout=120,
+        env=dict(os.environ, CUDA_VISIBLE_DEVICES=""),
+    )
+    assert res.returncode != 0
+    assert '"ok"' not in res.stdout
