@@ -1,10 +1,10 @@
-"""Host-side point-cloud transforms of the S3DIS test path.
+"""Host-side point-cloud transforms of the S3DIS train and test paths.
 
 Port of the transforms of ao_tpu/datasets/transform.py that the S3DIS
 PT-v2m2 configs name, with the same semantics (FNV-1a voxel
-hashing, train and test GridSample modes). Arrays stay numpy until
-``collate_fn``; randomness comes from a ``torch.Generator`` (the default
-one unless a transform is given its own).
+hashing, train and test GridSample modes, random sphere crops). Arrays
+stay numpy until ``collate_fn``; randomness comes from a
+``torch.Generator`` (the default one unless a transform is given its own).
 """
 
 from __future__ import annotations
@@ -26,6 +26,28 @@ def _uniform(lo, hi, n, generator):
     # numpy's uniform does
     u = torch.rand(n, generator=generator, dtype=torch.float64).numpy()
     return lo + (hi - lo) * u
+
+
+def _normal(shape, generator):
+    return torch.randn(shape, generator=generator, dtype=torch.float64).numpy()
+
+
+# keys that hold one row per point and are indexed together
+POINT_KEYS = (
+    "coord", "origin_coord", "discrete_coord", "color", "normal", "strength",
+    "segment", "origin_segment", "instance", "displacement", "weight",
+    "index",
+)
+
+
+def index_points(data_dict: dict, idx) -> dict:
+    """Apply an index to every per-point array present in data_dict."""
+    n = data_dict["coord"].shape[0]
+    for key in POINT_KEYS:
+        v = data_dict.get(key)
+        if isinstance(v, np.ndarray) and v.shape[:1] == (n,):
+            data_dict[key] = v[idx]
+    return data_dict
 
 
 @TRANSFORMS.register_module()
@@ -153,6 +175,108 @@ class RandomFlip:
                     data_dict["coord"][:, axis] = -data_dict["coord"][:, axis]
                 if "normal" in data_dict:
                     data_dict["normal"][:, axis] = -data_dict["normal"][:, axis]
+        return data_dict
+
+
+@TRANSFORMS.register_module()
+class RandomJitter:
+    def __init__(self, sigma=0.01, clip=0.05,
+                 generator: Optional[torch.Generator] = None):
+        if clip <= 0:
+            raise ValueError("RandomJitter: clip must be positive")
+        self.sigma = sigma
+        self.clip = clip
+        self.generator = generator
+
+    def __call__(self, data_dict):
+        if "coord" in data_dict:
+            n = data_dict["coord"].shape[0]
+            jitter = np.clip(self.sigma * _normal((n, 3), self.generator),
+                             -self.clip, self.clip)
+            data_dict["coord"] = data_dict["coord"] + jitter
+        return data_dict
+
+
+@TRANSFORMS.register_module()
+class ChromaticAutoContrast:
+    def __init__(self, p=0.2, blend_factor=None,
+                 generator: Optional[torch.Generator] = None):
+        self.p = p
+        self.blend_factor = blend_factor
+        self.generator = generator
+
+    def __call__(self, data_dict):
+        if "color" in data_dict and _uniform(0.0, 1.0, 1, self.generator)[0] < self.p:
+            color = data_dict["color"][:, :3]
+            lo = color.min(0, keepdims=True)
+            hi = color.max(0, keepdims=True)
+            contrast = (color - lo) * (255 / np.maximum(hi - lo, 1e-12))
+            blend = (_uniform(0.0, 1.0, 1, self.generator)[0]
+                     if self.blend_factor is None else self.blend_factor)
+            data_dict["color"][:, :3] = (1 - blend) * color + blend * contrast
+        return data_dict
+
+
+@TRANSFORMS.register_module()
+class ChromaticTranslation:
+    def __init__(self, p=0.95, ratio=0.05,
+                 generator: Optional[torch.Generator] = None):
+        self.p = p
+        self.ratio = ratio
+        self.generator = generator
+
+    def __call__(self, data_dict):
+        if "color" in data_dict and _uniform(0.0, 1.0, 1, self.generator)[0] < self.p:
+            tr = (_uniform(0.0, 1.0, 3, self.generator)[None] - 0.5) * 255 * 2 * self.ratio
+            data_dict["color"][:, :3] = np.clip(
+                data_dict["color"][:, :3] + tr, 0, 255)
+        return data_dict
+
+
+@TRANSFORMS.register_module()
+class ChromaticJitter:
+    def __init__(self, p=0.95, std=0.005,
+                 generator: Optional[torch.Generator] = None):
+        self.p = p
+        self.std = std
+        self.generator = generator
+
+    def __call__(self, data_dict):
+        if "color" in data_dict and _uniform(0.0, 1.0, 1, self.generator)[0] < self.p:
+            n = data_dict["color"].shape[0]
+            noise = _normal((n, 3), self.generator) * self.std * 255
+            data_dict["color"][:, :3] = np.clip(
+                data_dict["color"][:, :3] + noise, 0, 255)
+        return data_dict
+
+
+@TRANSFORMS.register_module()
+class SphereCrop:
+    """Keep the ``point_max`` points nearest a random point (mode "random")
+    or the middle point (mode "center") when the cloud has more."""
+
+    def __init__(self, point_max=80000, sample_rate=None, mode="random",
+                 generator: Optional[torch.Generator] = None):
+        if mode not in ("random", "center"):
+            raise ValueError(f"SphereCrop: mode {mode!r} is not ported")
+        self.point_max = point_max
+        self.sample_rate = sample_rate
+        self.mode = mode
+        self.generator = generator
+
+    def __call__(self, data_dict):
+        n = data_dict["coord"].shape[0]
+        point_max = (int(self.sample_rate * n) if self.sample_rate is not None
+                     else self.point_max)
+        if n > point_max:
+            if self.mode == "random":
+                i = int(torch.randint(0, n, (1,), generator=self.generator))
+            else:
+                i = n // 2
+            center = data_dict["coord"][i]
+            idx_crop = np.argsort(
+                np.sum((data_dict["coord"] - center) ** 2, 1))[:point_max]
+            index_points(data_dict, idx_crop)
         return data_dict
 
 

@@ -1,3 +1,4 @@
 from .builder import MODELS, build_model
+from .losses import LOSSES, build_criteria
 from . import default  # noqa: F401
 from .point_transformer_v2 import ptv2m2  # noqa: F401

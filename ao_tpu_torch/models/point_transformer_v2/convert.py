@@ -6,7 +6,9 @@ whose names are the reference torch model's. The mapping is a copy of
 ao_tpu/models/point_transformer_v2/convert.py:flax_to_torch_state_dict
 (the port imports nothing of ao_tpu): flax ``Dense.kernel`` is (in, out)
 and torch ``Linear.weight`` (out, in), so every kernel transposes; the
-GVA's raw pe / weight-encoding parameters map onto its two MLPs.
+GVA's raw pe / weight-encoding parameters map onto its two MLPs. Given
+no batch statistics it maps a tree shaped like ``params`` alone, such as
+the gradients of ``jax.grad``, onto the port's parameter names.
 """
 
 from __future__ import annotations
@@ -48,6 +50,8 @@ class _Writer:
         """A PointBatchNorm's BatchNorm1d at ``tname``."""
         self.out[tname + ".weight"] = _get(self.params, scale)
         self.out[tname + ".bias"] = _get(self.params, bias)
+        if self.stats is None:
+            return
         self.out[tname + ".running_mean"] = _get(self.stats, mean)
         self.out[tname + ".running_var"] = _get(self.stats, var)
         self.out[tname + ".num_batches_tracked"] = np.asarray(0, np.int64)
@@ -93,13 +97,17 @@ def _block_seq(w: _Writer, t, path, qkv_bias=True):
         raise KeyError(f"no blocks under flax path {path}")
 
 
-def from_jax_variables(params, batch_stats, qkv_bias: bool = True):
+def from_jax_variables(params, batch_stats=None, qkv_bias: bool = True):
     """Map ao_tpu PT-v2m2 flax ``params`` / ``batch_stats`` (nested dicts of
     arrays) to the port's ``state_dict`` of torch tensors. A DefaultSegmentor
-    tree (a ``backbone`` subtree) gives ``backbone.``-prefixed names."""
+    tree (a ``backbone`` subtree) gives ``backbone.``-prefixed names. With
+    ``batch_stats`` None only the parameters are mapped (a gradient tree
+    maps this way)."""
     prefix = ""
     if "backbone" in params:
-        params, batch_stats = params["backbone"], batch_stats.get("backbone", {})
+        params = params["backbone"]
+        if batch_stats is not None:
+            batch_stats = batch_stats.get("backbone", {})
         prefix = "backbone."
     w = _Writer(params, batch_stats)
     w.dense(("Dense_0",), "patch_embed.proj.0", bias=False)

@@ -1,4 +1,4 @@
-"""Point Transformer V2 (mode 2), eval forward (port of
+"""Point Transformer V2 (mode 2), train and eval forward (port of
 ao_tpu/models/point_transformer_v2/ptv2m2.py).
 
 Same data model as the JAX package: dense padded ``(B, N, ...)`` tensors
@@ -10,9 +10,15 @@ same dispatch rules:
   their points Morton-sorted and build the window-restricted graph of
   ``knn_self_presorted`` (half-window 256 rows); the TPU package's "backend
   is tpu" test is "device is cuda" here.
-* the fused GVA kernel (K3) runs on the card for bf16 compute at
-  N >= 64; below that gate, and off the card, the unfused composition with
-  the reference's pad semantics runs.
+* the fused GVA kernels run on the card for bf16 compute at N >= 64 (K3 in
+  eval mode; K4, K5, K3 and, backwards, K6 in train mode); below that
+  gate, and off the card, the unfused composition with the reference's pad
+  semantics runs, differentiated by autograd.
+
+Train mode (``model.train()``) normalises with batch statistics and
+updates the running ones, applies stochastic depth, and carries the
+position moments of each resolution's graph in the stage cache, so that
+K4 runs once per resolution and the decoder stage at it reuses them.
 
 So the port on the CPU follows the JAX package's CPU path, and the port on
 the card follows its TPU path. Parameter names follow the reference torch
@@ -27,11 +33,12 @@ import torch
 from torch import nn
 
 from ...ops.grid_pool import grid_pool, unpool_map
-from ...ops.gva import folded_params, gva_eval, gva_reference_eval, pack_coords
+from ...ops.gva import (folded_params, gva_eval, gva_reference, gva_train,
+                        pack_coords)
 from ...ops.interpolation import interpolation
 from ...ops.knn_spatial import knn_self_presorted, knn_self_spatial, morton_code
 from ..builder import MODELS
-from ..utils import DropPath, PointBatchNorm, dense
+from ..utils import DropPath, PointBatchNorm, dense, update_running_stats
 
 # Below this point count one curve window covers (nearly) the whole cloud,
 # so a single probe is exact; above it, three probes.
@@ -105,7 +112,11 @@ class GroupedVectorAttention(nn.Module):
             we_var=wbn.norm.running_var, W2=w2.weight.t(), b2=w2.bias,
         )
 
-    def forward(self, feat, coord6, idx, idx_valid, mask, fused: bool):
+    def forward(self, feat, coord6, idx, idx_valid, mask, fused: bool,
+                pos_moments=None):
+        """Returns (out, pos_moments). In train mode on the fused path the
+        position moments of this resolution's graph are computed (K4) when
+        ``pos_moments`` is None and returned for the next block."""
         dt = self.dtype
         q = torch.relu(self.linear_q[1](dense(self.linear_q[0], feat, dt), mask))
         k = torch.relu(self.linear_k[1](dense(self.linear_k[0], feat, dt), mask))
@@ -115,9 +126,21 @@ class GroupedVectorAttention(nn.Module):
             bf = torch.bfloat16
             src = torch.cat([k.to(bf), v.to(bf), coord6], dim=-1)
             qrow = torch.cat([q.to(bf), coord6, mask[..., None].to(bf)], dim=-1)
-            return gva_eval(src, qrow, idx, idx_valid, folded_params(p))
-        return gva_reference_eval(k, v, q, coord6, idx, idx_valid, mask, p,
-                                  dt or torch.float32)
+            if not self.training:
+                return gva_eval(src, qrow, idx, idx_valid,
+                                folded_params(p)), pos_moments
+            out, stats_w, stats_p, pos_moments = gva_train(
+                src, qrow, idx, idx_valid, p, pos_moments)
+        else:
+            if not self.training:
+                return gva_reference(k, v, q, coord6, idx, idx_valid, mask, p,
+                                     dt or torch.float32), pos_moments
+            out, stats_w, stats_p = gva_reference(
+                k, v, q, coord6, idx, idx_valid, mask, p, dt or torch.float32,
+                train=True)
+        update_running_stats(self.linear_p_bias[1].norm, *stats_p)
+        update_running_stats(self.weight_encoding[1].norm, *stats_w)
+        return out, pos_moments
 
 
 class Block(nn.Module):
@@ -136,14 +159,16 @@ class Block(nn.Module):
         self.norm3 = PointBatchNorm(C)
         self.drop_path = DropPath(drop_path_rate)
 
-    def forward(self, feat, coord6, idx, idx_valid, mask, fused):
+    def forward(self, feat, coord6, idx, idx_valid, mask, fused,
+                pos_moments=None):
         identity = feat
         h = torch.relu(self.norm1(dense(self.fc1, feat, self.dtype), mask))
-        h = self.attn(h, coord6, idx, idx_valid, mask, fused)
+        h, pos_moments = self.attn(h, coord6, idx, idx_valid, mask, fused,
+                                   pos_moments)
         h = torch.relu(self.norm2(h, mask))
         h = self.norm3(dense(self.fc3, h, self.dtype), mask)
         h = torch.relu(identity + self.drop_path(h))
-        return torch.where(mask[..., None], h, 0.0)
+        return torch.where(mask[..., None], h, 0.0), pos_moments
 
 
 class BlockSequence(nn.Module):
@@ -165,7 +190,8 @@ class BlockSequence(nn.Module):
                 force: Optional[dict] = None):
         """Returns (feat, knn_cache). The cache holds this resolution's
         neighbour graph (and, on the slab path, its Morton sort) for the
-        decoder stage at the same resolution.
+        decoder stage at the same resolution, and in train mode the graph's
+        position moments.
 
         ``force`` (tests only) sets the dispatch explicitly, as
         ``dict(slab=<geometry dict or None>, fused=<bool>)``, so that the
@@ -179,7 +205,7 @@ class BlockSequence(nn.Module):
         if knn_cache is not None and knn_cache["slab"] == slab:
             cache = knn_cache
         else:
-            cache = dict(slab=slab, order=None, inv=None)
+            cache = dict(slab=slab, order=None, inv=None, pos_moments=None)
             if slab is not None:
                 order = torch.argsort(morton_code(coord, mask), dim=1,
                                       stable=True)
@@ -207,9 +233,12 @@ class BlockSequence(nn.Module):
         if cache["order"] is not None:
             feat = torch.gather(
                 feat, 1, cache["order"][..., None].expand(-1, -1, feat.shape[-1]))
+        pos_moments = cache["pos_moments"]
         for blk in self.blocks:
-            feat = blk(feat, cache["coord6"], cache["idx"], cache["idx_valid"],
-                       mask_u, fused)
+            feat, pos_moments = blk(feat, cache["coord6"], cache["idx"],
+                                    cache["idx_valid"], mask_u, fused,
+                                    pos_moments)
+        cache["pos_moments"] = pos_moments
         if cache["order"] is not None:
             feat = torch.gather(
                 feat, 1, cache["inv"][..., None].expand(-1, -1, feat.shape[-1]))
@@ -217,7 +246,9 @@ class BlockSequence(nn.Module):
 
 
 class GridPool(nn.Module):
-    """fc -> BN -> ReLU, then grid pooling (mean coord / max feat)."""
+    """fc -> BN -> ReLU, then grid pooling (mean coord / max feat). Also
+    returns the count of clusters beyond the static capacity, which merge
+    into the last one (the trainer's ``pool_overflow`` metric)."""
 
     def __init__(self, in_channels, out_channels, grid_size, bias=False):
         super().__init__()
@@ -227,10 +258,10 @@ class GridPool(nn.Module):
 
     def forward(self, feat, coord, mask, max_clusters):
         h = torch.relu(self.norm(dense(self.fc, feat), mask))
-        # clusters beyond the static capacity merge into the last one
-        pc, pf, pm, cluster, _ = grid_pool(
+        pc, pf, pm, cluster, n_clusters = grid_pool(
             coord, h, mask, self.grid_size, max_clusters)
-        return pc, pf, pm, cluster
+        overflow = torch.clamp_min(n_clusters - max_clusters, 0).sum()
+        return pc, pf, pm, cluster, overflow
 
 
 class UnpoolWithSkip(nn.Module):
@@ -275,7 +306,8 @@ class PointTransformerV2(nn.Module):
     ``stage_cap_ratios`` bound each pooled stage's static point capacity as
     a fraction of the previous stage's. ``compute_dtype="bfloat16"`` runs
     the attention blocks' activations in bf16; norms and the other layers
-    stay f32."""
+    stay f32. After each forward ``pool_overflow`` holds the number of
+    clusters that overflowed the stage capacities (0 when they suffice)."""
 
     def __init__(
         self,
@@ -310,6 +342,7 @@ class PointTransformerV2(nn.Module):
             raise ValueError("enc_depths, dec_depths and grid_sizes differ in length")
         dtype = getattr(torch, compute_dtype) if compute_dtype else None
         self.num_classes = num_classes
+        self.pool_overflow = None
         self.dec_neighbours = tuple(dec_neighbours)
         self.stage_cap_ratios = tuple(stage_cap_ratios)
 
@@ -371,8 +404,11 @@ class PointTransformerV2(nn.Module):
 
         skips = [(coord, h, mask, knn0)]
         clusters = []
+        overflow = torch.zeros((), dtype=torch.int64, device=coord.device)
         for i, stage in enumerate(self.enc_stages):
-            coord, h, mask, cluster = stage.down(h, coord, mask, caps[i + 1])
+            coord, h, mask, cluster, over = stage.down(h, coord, mask,
+                                                       caps[i + 1])
+            overflow = overflow + over
             h, knn_i = stage.blocks(h, coord, mask)
             clusters.append(cluster)
             skips.append((coord, h, mask, knn_i))
@@ -388,6 +424,7 @@ class PointTransformerV2(nn.Module):
             if skip_knn["idx"].shape[-1] != self.dec_neighbours[i]:
                 skip_knn = None  # neighbour count differs; recompute
             h, _ = stage.blocks(h, coord, mask, skip_knn)
+        self.pool_overflow = overflow
 
         if self.num_classes > 0:
             g = dense(self.seg_head[0], h)

@@ -44,6 +44,14 @@ _SIGNATURES = {
     # src, qrow, idx, valid, A, cA, Wp2, bp2, W1f, b1f, W2, b2, out,
     # B, Nsrc, Nq, S, C, G, stream
     "gva_eval_launch": [_P] * 13 + [_I] * 6 + [_P],
+    # src, qrow, idx, valid, part, B, Nsrc, Nq, S, C, nblk, stream
+    "gva_pos_launch": [_P] * 5 + [_I] * 6 + [_P],
+    # src, qrow, idx, valid, A, cA, Wp2, bp2, W1, b1, part,
+    # B, Nsrc, Nq, S, C, G, nblk, stream
+    "gva_stats_launch": [_P] * 11 + [_I] * 7 + [_P],
+    # src, qrow, idx, valid, A, cA, Wp2, Wp2T, bp2, W1f, W1fT, b1f, W2, b2,
+    # dout, dkv, dq, mom, qmom, part, B, Nsrc, Nq, S, C, G, nblk, stream
+    "gva_bwd_launch": [_P] * 20 + [_I] * 7 + [_P],
 }
 
 _lib = None

@@ -12,10 +12,13 @@ def grouping(
     idx: torch.Tensor,  # (B, M, k) into N
     valid: Optional[torch.Tensor] = None,  # (B, M, k) bool
 ) -> torch.Tensor:
-    """Gather neighbour features -> (B, M, k, C); invalid slots are zeroed."""
-    B = feat.shape[0]
-    bidx = torch.arange(B, device=feat.device)[:, None, None]
-    gathered = feat[bidx, idx.long()]
+    """Gather neighbour features -> (B, M, k, C); invalid slots are zeroed.
+    A ``torch.gather`` along N, whose backward is a scatter-add (advanced
+    indexing's backward sorts the indices first)."""
+    B, M, k = idx.shape
+    C = feat.shape[-1]
+    flat = idx.reshape(B, M * k, 1).long().expand(B, M * k, C)
+    gathered = torch.gather(feat, 1, flat).reshape(B, M, k, C)
     if valid is not None:
         gathered = torch.where(valid[..., None], gathered, 0.0)
     return gathered

@@ -3,29 +3,39 @@
     python3 chip_smoke.py [--seed 0]
 
 Needs one CUDA card and nvcc; exits non-zero without them. Reads nothing
-under data/ or exp/: the scene is synthetic and the weights are random.
+under data/ or exp/: the scenes are synthetic and the weights are random.
+PT-v2m2 runs at the full width of configs/s3dis/semseg-pt-v2m2-0-base.py.
 
 1. Prints the card (nvidia-smi name and power limit), the torch and CUDA
    versions, and builds the kernels (one nvcc call over csrc/*.cu).
-2. Kernel phase: PT-v2m2 at the full width of
-   configs/s3dis/semseg-pt-v2m2-0-base.py, random weights from the seed,
-   runs the slice phase's own largest batch (8 distinct fragments of the
-   synthetic room, padded as the tester pads them) and a small batch of
-   two room pieces padded to 16384, whose deep stages fall below the
-   2048-point slab gate. The inputs of every kernel call with a new shape
-   are captured; each kernel is then held against its plain PyTorch
-   version on them and timed (CUDA events, after warm-up) beside the
-   plain version, a library call where one computes the same function,
-   and its bound.
-3. Slice phase: runs whole-scene testing of the same room through the
-   port's entry point (ao_tpu_torch.tools.test) with the config's 10 TTA
-   views, then checks that every point received finite votes from every
-   view.
-4. Times the largest batch's forward again and traces it with
-   torch.profiler (device time by kernel, busy share).
+2. Kernel phase (test slice): runs the slice phase's own largest batch
+   (8 distinct fragments of a synthetic room, padded as the tester pads
+   them) and a small batch of two room pieces padded to 16384, whose deep
+   stages fall below the 2048-point slab gate. The inputs of every kernel
+   call with a new shape are captured; each kernel is then held against
+   its plain PyTorch version on them and timed (CUDA events, after
+   warm-up) beside the plain version, a library call where one computes
+   the same function, and its bound.
+3. Slice phase: whole-scene testing of the room through the port's entry
+   point (ao_tpu_torch.tools.test) with the config's 10 TTA views; every
+   point must receive finite votes from every view. Then the largest
+   batch's forward is timed and traced with torch.profiler.
+4. Train kernel phase: one train step of the train phase's batch (three
+   synthetic rooms of about 80k voxels each, B=3 x 81920, every stage on
+   the slab path) and one of the small batch (deep stages gathered), with
+   the train path's GVA kernels captured (K3 with batch-statistic folds,
+   K4 position moments, K5 weight-BN statistics, K6 backward); each held
+   against its plain version and timed as in 2.
+5. Train phase: a few steps of the base config's Trainer through the
+   port's entry point (ao_tpu_torch.tools.train) on the three rooms; every
+   loss and gradient norm must be finite and the parameters must move.
+   Prints the step seconds, the data wait and the peak device memory, then
+   times and traces one more step with torch.profiler.
 
-The last three lines are the card, the kernels' JSON record and
-{"ok": true, "device": {...}}.
+Each main path (the slice phase, the train phase) runs with every
+kernel's launch count set to 0 just before it and read just after, and
+fails if one of its kernels never launched. The last three lines are the
+card, the kernels' JSON record and {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -33,6 +43,7 @@ from __future__ import annotations
 import argparse
 import faulthandler
 import json
+import math
 import os
 import subprocess
 import sys
@@ -59,9 +70,31 @@ KERNEL_INFO = {
         replaces="ao_tpu/ops/pallas/merge_topk.py:91"),
     "gva_eval": dict(
         route="cuda", source="ao_tpu_torch/csrc/gva_eval.cu",
-        replaces="ao_tpu/ops/pallas/gva_slab.py:432 + "
-                 "ao_tpu/ops/pallas/gva_fused.py:419"),
+        replaces="ao_tpu/ops/pallas/gva_slab.py:263 + "
+                 "ao_tpu/ops/pallas/gva_fused.py:276"),
+    "gva_pos": dict(
+        route="cuda", source="ao_tpu_torch/csrc/gva_pos.cu",
+        replaces="ao_tpu/ops/pallas/gva_slab.py:203 + "
+                 "ao_tpu/ops/pallas/gva_fused.py:242"),
+    "gva_stats": dict(
+        route="cuda", source="ao_tpu_torch/csrc/gva_stats.cu",
+        replaces="ao_tpu/ops/pallas/gva_slab.py:236 + "
+                 "ao_tpu/ops/pallas/gva_fused.py:218"),
+    "gva_bwd": dict(
+        route="cuda", source="ao_tpu_torch/csrc/gva_bwd.cu",
+        replaces="ao_tpu/ops/pallas/gva_slab.py:294 + "
+                 "ao_tpu/ops/pallas/gva_fused.py:292 + "
+                 "ao_tpu/ops/pallas/gva_fused.py:346"),
 }
+# the kernels of each main path (all six run in a train step)
+SLICE_KERNELS = ("knn_window", "merge_topk", "gva_eval")
+TRAIN_KERNELS = tuple(KERNEL_INFO)
+# (make_room seed, room size in m) of the train phase's three rooms: over
+# 100k voxels of 0.04 m each, so that after the train transforms
+# (RandomScale down to 0.9) SphereCrop keeps 80000 points and the batch
+# pads to the config's 81920
+TRAIN_ROOMS = ((1, (6.0, 5.0, 3.0)), (2, (6.4, 4.8, 3.0)),
+               (3, (5.6, 5.4, 3.2)))
 
 # class id -> base colour of the synthetic room (S3DIS' 13 classes)
 _COLORS = np.array([
@@ -289,6 +322,101 @@ def check_gva_eval(args, out_k, out_p):
     return ok, err, bound_ms, by, None, f"scale {scale:.3g}"
 
 
+def _gva_dims(args):
+    """(B, Nq, S, Nsrc, C) of a GVA kernel's row arguments."""
+    src, qrow, idx = args[:3]
+    return (*idx.shape, src.shape[1], qrow.shape[-1] - 7)
+
+
+def _rel(out_k, out_p, scale=None):
+    """(max abs error, the reference's scale) of two tensors."""
+    err = float((out_k.float() - out_p.float()).abs().max())
+    ref = float(out_p.abs().max()) if scale is None else scale
+    return err, max(ref, 1e-12)
+
+
+def check_gva_pos(args, out_k, out_p):
+    src, qrow, idx, valid = args
+    B, Nq, S, Nsrc, C = _gva_dims(args)
+    ok, errs, notes = torch.equal(out_k[2], out_p[2]), [], []
+    for name, a, b in zip(("psum", "ppsum"), out_k[:2], out_p[:2]):
+        err, scale = _rel(a, b)
+        ok = ok and err <= 1e-4 * scale  # f32 sums of ~4M terms
+        errs.append(err)
+        notes.append(f"{name} {err / scale:.2g}")
+    edges = float(out_p[2])
+    # coordinate lanes of every source and query row, ids, validity
+    nbytes = (B * (Nsrc + Nq) * 6 * 2 + _nbytes(idx, valid) + 13 * 4)
+    bound_ms, by = _bound(nbytes, f32_ops=30.0 * edges)
+    return ok, max(errs), bound_ms, by, None, (
+        f"count {edges:.0f} exact={torch.equal(out_k[2], out_p[2])}; rel "
+        + " ".join(notes))
+
+
+def check_gva_stats(args, out_k, out_p):
+    src, qrow, idx, valid, A, cA, Wp2, bp2, W1, b1 = args
+    B, Nq, S, Nsrc, C = _gva_dims(args)
+    G = W1.shape[1]
+    ok, errs, notes = torch.equal(out_k[2], out_p[2]), [], []
+    for name, a, b in zip(("sum_t", "sum_t2", "count", "psum", "ppsum"),
+                          out_k, out_p):
+        err, scale = _rel(a, b)
+        ok = ok and err <= 1e-4 * scale
+        errs.append(err)
+        notes.append(f"{name} {err / scale:.2g}")
+    edges = float(out_p[2])
+    nbytes = (B * Nsrc * (C + 6) * 2 + B * Nq * (C + 7) * 2
+              + _nbytes(idx, valid, A, cA, Wp2, bp2, W1, b1) + (2 * G + 13) * 4)
+    mm = edges * (2 * 3 * C + 2 * C * C + 2 * C * G)
+    bound_ms, by = _bound(nbytes, bf16_ops=mm, f32_ops=edges * (6 * C + 6 * G))
+    return ok, max(errs), bound_ms, by, None, "rel " + " ".join(notes)
+
+
+# K6's parameter sums and the weight sums whose scale their bias sums are
+# measured against (db2 is zero up to rounding: the softmax is
+# shift-invariant)
+_PARTNER = {"db1f": "dW1f", "db2": "dW2", "dbp2": "dWp2", "dcA": "dA"}
+
+
+def check_gva_bwd(args, out_k, out_p):
+    from ao_tpu_torch.ops.gva import _split_par, bwd_par_layout
+
+    src, qrow, idx, valid, fp, dout = args
+    B, Nq, S, Nsrc, C = _gva_dims(args)
+    G = fp["W2"].shape[0]
+    # dkv / dq / the parameter sums: f32 atomics in changing order, and the
+    # bf16 rounding of dt and dpeb can flip by one unit where the kernel's
+    # sums differ in the last bit: 1e-2 of scale (measured up to 5.8e-3);
+    # the [valid | t] moments: 1e-3
+    ok, errs, notes = True, [], []
+    for name, a, b, tol in (("dkv", out_k[0], out_p[0], 1e-2),
+                            ("dq", out_k[1], out_p[1], 1e-2),
+                            ("mom", out_k[3], out_p[3], 1e-3),
+                            ("qmom", out_k[4], out_p[4], 1e-3)):
+        err, scale = _rel(a, b)
+        ok = ok and err <= tol * scale
+        errs.append(err)
+        notes.append(f"{name} {err / scale:.2g}")
+    pk, pp = _split_par(out_k[2], C, G), _split_par(out_p[2], C, G)
+    for name in pk:
+        scale = float(pp[name].abs().max())
+        if name in _PARTNER:
+            scale = max(scale, float(pp[_PARTNER[name]].abs().max()))
+        err, scale = _rel(pk[name], pp[name], scale)
+        ok = ok and err <= 1e-2 * scale
+        errs.append(err)
+        notes.append(f"{name} {err / scale:.2g}")
+    edges = float(valid.sum())
+    P = sum(math.prod(shape) for _, shape in bwd_par_layout(C, G))
+    nbytes = (_nbytes(src, qrow, idx, valid, dout, *fp.values())
+              + B * Nsrc * (2 * C + 1 + G) * 4 + B * Nq * (C + 1 + G) * 4
+              + P * 4)
+    mm = edges * (2 * 3 * C + 4 * C * C + 4 * C * G + 12 * C * (1 + G))
+    f32 = edges * (2 * C * C + 2 * C * G + 6 * G * G + 6 * C + 30 * C)
+    bound_ms, by = _bound(nbytes, bf16_ops=mm, f32_ops=f32)
+    return ok, max(errs), bound_ms, by, None, "rel " + " ".join(notes)
+
+
 def describe(name, args):
     if name == "knn_window":
         keys, _, _, q, _, k, tile_q, window = args
@@ -297,26 +425,78 @@ def describe(name, args):
     if name == "merge_topk":
         d2, _, k = args
         return f"B={d2.shape[0]} N={d2.shape[1]} width={d2.shape[2]} k={k}"
-    src, qrow, idx, _, fp = args
-    mode = "slab" if src.shape[1] >= 2048 else "gathered"
-    return (f"B={idx.shape[0]} N={idx.shape[1]} S={idx.shape[2]} "
-            f"C={qrow.shape[-1] - 7} G={fp['W2'].shape[0]} mode={mode}")
+    B, Nq, S, Nsrc, C = _gva_dims(args)
+    mode = "slab" if Nsrc >= 2048 else "gathered"
+    G = (args[4]["W2"].shape[0] if name in ("gva_eval", "gva_bwd")
+         else args[8].shape[1] if name == "gva_stats" else None)
+    g = f" G={G}" if G else ""
+    return f"B={B} N={Nq} S={S} C={C}{g} mode={mode}"
+
+
+PLAIN = {}  # kernel name -> its plain version, filled by plain_versions()
+CHECKS = {"knn_window": check_knn_window, "merge_topk": check_merge_topk,
+          "gva_eval": check_gva_eval, "gva_pos": check_gva_pos,
+          "gva_stats": check_gva_stats, "gva_bwd": check_gva_bwd}
+
+
+def plain_versions():
+    from ao_tpu_torch.ops import gva as g
+    from ao_tpu_torch.ops import knn_spatial as ks
+
+    PLAIN.update(knn_window=ks.knn_window_plain, merge_topk=ks.merge_topk_plain,
+                 gva_eval=g.gva_eval_plain, gva_pos=g.gva_pos_plain,
+                 gva_stats=g.gva_stats_plain, gva_bwd=g.gva_bwd_plain)
+    return PLAIN
+
+
+def hold_captured(cap, phase):
+    """Hold each kernel against its plain version on every captured
+    (kernel, shape) and time both; raise if one disagrees."""
+    plain = plain_versions()
+    rows, failures = [], []
+    for key, (name, fn, args) in cap.calls.items():
+        with torch.inference_mode():
+            out_k = fn(*args)
+            out_p = plain[name](*args)
+            torch.cuda.synchronize()
+            ok, err, bound_ms, by, lib_ms, note = CHECKS[name](args, out_k, out_p)
+            del out_k, out_p
+            ms = cuda_ms(lambda: fn(*args))
+            plain_ms = cuda_ms(lambda: plain[name](*args), reps=3, warmup=1)
+        row = dict(name=name, phase=phase, shape=describe(name, args), ok=ok,
+                   max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                   bound_ms=bound_ms, bound_by=by, library_ms=lib_ms, note=note)
+        rows.append(row)
+        print(f"  {name:10s} {row['shape']:46s} ok={ok} err={err:.3g} "
+              f"ms={ms:.4f} plain_ms={plain_ms:.3f} bound_ms={bound_ms:.4f} "
+              f"({by}) library_ms={lib_ms} {note}", flush=True)
+        if not ok:
+            failures.append(f"{name} {row['shape']}")
+        torch.cuda.empty_cache()
+    cap.calls.clear()
+    print(json.dumps({"kernel_shapes": rows}), flush=True)
+    if failures:
+        raise RuntimeError(f"kernels disagree with their plain versions: {failures}")
+    return rows
+
+
+def _require(rows, names, what):
+    missing = set(names) - {r["name"] for r in rows}
+    if missing:
+        raise RuntimeError(f"kernels never called on the {what}: {sorted(missing)}")
+    for name in names:
+        if name.startswith("gva") and not any(
+                r["name"] == name and "mode=gathered" in r["shape"] for r in rows):
+            raise RuntimeError(f"{name} was not exercised in its gathered mode")
 
 
 def kernel_phase(model, batches, t0, device):
     """Run the model once on each (label, coord, feat, mask) batch with the
     kernel wrappers captured, then hold each kernel against its plain
     version on every captured (kernel, shape) and time both."""
-    from ao_tpu_torch.ops import gva as gva_mod
     from ao_tpu_torch.ops import knn_spatial as ks
     from ao_tpu_torch.models.point_transformer_v2 import ptv2m2
 
-    plain = {"knn_window": ks.knn_window_plain,
-             "merge_topk": ks.merge_topk_plain,
-             "gva_eval": gva_mod.gva_eval_plain}
-    checks = {"knn_window": check_knn_window,
-              "merge_topk": check_merge_topk,
-              "gva_eval": check_gva_eval}
     cap = Capture()
     cap.wrap(ks, "knn_window", "knn_window")
     cap.wrap(ks, "merge_topk", "merge_topk")
@@ -333,35 +513,32 @@ def kernel_phase(model, batches, t0, device):
                     f"{model.backbone.stage_capacities(mask.shape[1])}")
     finally:
         cap.restore()
+    rows = hold_captured(cap, "test")
+    _require(rows, SLICE_KERNELS, "slice's path")
+    return rows
 
-    rows, failures = [], []
-    for key, (name, fn, args) in cap.calls.items():
-        with torch.inference_mode():
-            out_k = fn(*args)
-            out_p = plain[name](*args)
+
+def train_kernel_phase(trainer, batches, t0):
+    """One train step on each (label, batch) with the GVA kernel wrappers of
+    the train path captured (K3 with batch-statistic folds, K4, K5, K6),
+    then each held against its plain version and timed."""
+    from ao_tpu_torch.ops import gva as gva_mod
+
+    cap = Capture()
+    for name in ("gva_pos", "gva_stats", "gva_eval", "gva_bwd"):
+        cap.wrap(gva_mod, name, name)
+    try:
+        for label, batch in batches:
+            m = trainer.train_step(batch)
             torch.cuda.synchronize()
-            ok, err, bound_ms, by, lib_ms, note = checks[name](args, out_k, out_p)
-            ms = cuda_ms(lambda: fn(*args))
-            plain_ms = cuda_ms(lambda: plain[name](*args), reps=3, warmup=1)
-        row = dict(name=name, shape=describe(name, args), ok=ok,
-                   max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                   bound_ms=bound_ms, bound_by=by, library_ms=lib_ms, note=note)
-        rows.append(row)
-        print(f"  {name:11s} {row['shape']:58s} ok={ok} err={err:.3g} "
-              f"ms={ms:.4f} plain_ms={plain_ms:.3f} bound_ms={bound_ms:.4f} "
-              f"({by}) library_ms={lib_ms} {note}", flush=True)
-        if not ok:
-            failures.append(row["shape"])
-        del out_k, out_p
-        torch.cuda.empty_cache()
-    print(json.dumps({"kernel_shapes": rows}), flush=True)
-    missing = set(plain) - {r["name"] for r in rows}
-    if missing:
-        raise RuntimeError(f"kernels never called on the path: {sorted(missing)}")
-    if not any("mode=gathered" in r["shape"] for r in rows):
-        raise RuntimeError("gva_eval was not exercised in its gathered mode")
-    if failures:
-        raise RuntimeError(f"kernels disagree with their plain versions: {failures}")
+            if not (torch.isfinite(m["loss"]) and torch.isfinite(m["grad_norm"])):
+                raise RuntimeError(f"non-finite loss or gradient on the {label}")
+            log(t0, f"captured train kernel inputs of the {label}, (B, N) "
+                    f"{tuple(batch['mask'].shape)}, loss {float(m['loss']):.4f}")
+    finally:
+        cap.restore()
+    rows = hold_captured(cap, "train")
+    _require(rows, ("gva_pos", "gva_stats", "gva_eval", "gva_bwd"), "train path")
     return rows
 
 
@@ -501,12 +678,126 @@ def profile_forward(model, batch, device):
                 busy_share=device_ms / wall_ms, top=top)
 
 
-def run(device, seed, t0, room_size=(4.8, 4.0, 2.6), **setup_kw):
-    """The kernel phase on the slice's largest batch and a small batch,
-    then the slice phase with the launch counts set to 0 just before it
-    and read just after; returns the kernels' record."""
+# ---------------------------------------------------------------------------
+# train phase
+# ---------------------------------------------------------------------------
+
+
+def train_setup(rooms, workdir=None, batch_size=3, max_steps=5, workers=3,
+                seed=0):
+    """Write the rooms (from :func:`make_room`) as scenes of the S3DIS train
+    split under ``workdir`` (a new temporary directory by default), one
+    area each. Returns (workdir, the train entry point's KEY=VALUE config
+    overrides)."""
+    workdir = workdir or tempfile.mkdtemp(prefix="ao_chip_train_")
+    for i, room in enumerate(rooms):
+        room_dir = os.path.join(workdir, "s3dis", f"Area_{i + 1}")
+        os.makedirs(room_dir, exist_ok=True)
+        np.savez(os.path.join(room_dir, f"office_{i}.npz"), **room)
+    options = [f"save_path={os.path.join(workdir, 'exp')}",
+               f"data.train.data_root={os.path.join(workdir, 's3dis')}",
+               f"batch_size={batch_size}", f"max_steps={max_steps}",
+               f"num_worker={workers}", f"seed={seed}"]
+    return workdir, options
+
+
+def build_trainer(options, device):
+    from ao_tpu_torch.engines import Trainer, default_config_parser
+    from ao_tpu_torch.utils import DictAction
+
+    opts = {k: DictAction._parse_value(v) for k, v in
+            (o.partition("=")[::2] for o in options)}
+    return Trainer(default_config_parser(BASE_CONFIG, opts), device=device)
+
+
+def run_train(device, options):
+    """Training through the port's entry point; returns the trainer."""
+    from ao_tpu_torch.tools.train import main as train_main
+
+    return train_main(["--config-file", BASE_CONFIG, "--device", str(device),
+                       "--options", *options])
+
+
+def check_train(trainer, steps):
+    """Every step's loss and gradient norm finite, and the parameters moved
+    away from the initial weights (rebuilt from the trainer's seed)."""
     from ao_tpu_torch.models import build_model
+    from ao_tpu_torch.utils.env import set_seed
+
+    hist = trainer.history
+    if len(hist) != steps:
+        raise RuntimeError(f"{len(hist)} train steps, expected {steps}")
+    for i, r in enumerate(hist):
+        if not (np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"])):
+            raise RuntimeError(f"step {i}: non-finite loss or gradient {r}")
+    set_seed(trainer.seed)
+    init = build_model(dict(trainer.cfg.model)).state_dict()
+    params = dict(trainer.model.named_parameters())
+    changed = sum(not torch.equal(p.detach().cpu(), init[n])
+                  for n, p in params.items())
+    if changed < 0.9 * len(params):
+        raise RuntimeError(f"only {changed} of {len(params)} parameter tensors "
+                           f"changed in training")
+    return changed, len(params)
+
+
+def profile_train_step(trainer, batch):
+    """Time one train step (host clock around a synchronised step), then
+    trace one with torch.profiler: device time by kernel name and the
+    device's busy share of the step."""
+    trainer.train_step(batch)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    trainer.train_step(batch)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t) * 1e3
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        trainer.train_step(batch)
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if str(e.device_type).endswith("CUDA")]
+    events.sort(key=lambda e: -e.self_device_time_total)
+    device_ms = sum(e.self_device_time_total for e in events) / 1e3
+    top = [dict(name=e.key[:60], ms=e.self_device_time_total / 1e3,
+                calls=e.count) for e in events[:15]]
+    return dict(shape=list(batch["mask"].shape),
+                points=int(batch["mask"].sum()), wall_ms=wall_ms,
+                device_ms=device_ms, busy_share=device_ms / wall_ms, top=top)
+
+
+def _wrappers():
     from ao_tpu_torch.ops import gva, knn_spatial
+
+    return {"knn_window": knn_spatial.knn_window,
+            "merge_topk": knn_spatial.merge_topk, "gva_eval": gva.gva_eval,
+            "gva_pos": gva.gva_pos, "gva_stats": gva.gva_stats,
+            "gva_bwd": gva.gva_bwd}
+
+
+def _drive(path_kernels, fn):
+    """Run ``fn`` with every launch count set to 0 just before and read just
+    after; fail if a kernel of the path never launched."""
+    wrappers = _wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    out = fn()
+    launches = {n: w.launches for n, w in wrappers.items()}
+    missing = [n for n in path_kernels if launches[n] <= 0]
+    if missing:
+        raise RuntimeError(f"kernels of the path never launched: {missing} "
+                           f"({launches})")
+    return out, launches
+
+
+def run(device, seed, t0, room_size=(4.8, 4.0, 2.6), train_steps=5, card="",
+        **setup_kw):
+    """The test slice (kernel phase, slice phase, forward profile), then the
+    train slice (train kernel phase, train phase, train-step profile); each
+    main path is driven with the launch counts set to 0 just before it and
+    read just after. Returns the kernels' record."""
+    from ao_tpu_torch.models import build_model
     from ao_tpu_torch.utils import Config
 
     cfg = Config.fromfile(BASE_CONFIG)
@@ -516,43 +807,84 @@ def run(device, seed, t0, room_size=(4.8, 4.0, 2.6), **setup_kw):
     setup = slice_setup(room, **setup_kw)
     log(t0, f"synthetic room: {len(room['coord'])} points")
     main_batch = main_path_batch(setup[1])
-    rows = kernel_phase(model, [main_batch, small_batch(room)], t0, device)
+    small = small_batch(room)
+    rows = kernel_phase(model, [main_batch, small], t0, device)
     log(t0, "kernel phase done")
 
-    wrappers = {"knn_window": knn_spatial.knn_window,
-                "merge_topk": knn_spatial.merge_topk,
-                "gva_eval": gva.gva_eval}
-    for w in wrappers.values():
-        w.launches = 0
-    result, votes, n_views = run_slice(device, seed, model=model, setup=setup)
-    launches = {n: w.launches for n, w in wrappers.items()}
+    (result, votes, n_views), slice_launches = _drive(
+        SLICE_KERNELS, lambda: run_slice(device, seed, model=model, setup=setup))
     check_votes(votes, n_views)
     scene = result["scenes"][0]
     caps = sorted({tuple(model.backbone.stage_capacities(n))
                    for _, n in scene["batches"]})
     print(f"slice: {scene['fragments']} fragments in batches (B, N) "
           f"{scene['batches']}; stage capacities {caps}", flush=True)
-    print(f"slice: launches {launches}; scene {scene['seconds']:.2f} s; "
+    print(f"slice: launches {slice_launches}; scene {scene['seconds']:.2f} s; "
           f"mIoU {result['mIoU']:.4f} allAcc {result['allAcc']:.4f} "
           f"(random weights)", flush=True)
-    if min(launches.values()) <= 0:
-        raise RuntimeError(f"a kernel of the path never launched: {launches}")
     log(t0, "slice phase done")
-    print(json.dumps({"forward_profile": profile_forward(
-        model, main_batch, device)}), flush=True)
+    print(json.dumps({"forward_profile": dict(
+        profile_forward(model, main_batch, device), card=card)}), flush=True)
+    del model
+    torch.cuda.empty_cache()
     log(t0, "forward profile done")
+
+    rooms = [make_room(s, size) for s, size in TRAIN_ROOMS]
+    workdir, options = train_setup(rooms, max_steps=train_steps, seed=seed)
+    log(t0, f"train rooms: {[len(r['coord']) for r in rooms]} points")
+    trainer = build_trainer(
+        options + [f"save_path={os.path.join(workdir, 'exp_kernels')}"], device)
+    it = iter(trainer.train_loader)
+    train_batch = next(it)
+    del it
+    _, coord, feat, mask = small
+    small_train = dict(coord=coord, feat=feat, mask=mask,
+                       segment=torch.where(mask, 0, -1).to(torch.int32))
+    rows += train_kernel_phase(trainer, [("train phase's batch", train_batch),
+                                         ("small batch", small_train)], t0)
+    del trainer
+    torch.cuda.empty_cache()
+    log(t0, "train kernel phase done")
+
+    torch.cuda.reset_peak_memory_stats()
+    trainer, train_launches = _drive(TRAIN_KERNELS,
+                                     lambda: run_train(device, options))
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    changed, n_params = check_train(trainer, train_steps)
+    hist = trainer.history
+    step_s = float(np.median([r["step_seconds"] for r in hist[1:]]))
+    print(f"train: (B, N) {tuple(train_batch['mask'].shape)} points/step "
+          f"{[r['points'] for r in hist]}", flush=True)
+    print(f"train: losses {[round(r['loss'], 5) for r in hist]} grad_norms "
+          f"{[round(r['grad_norm'], 4) for r in hist]} pool_overflow "
+          f"{[r['pool_overflow'] for r in hist]}", flush=True)
+    print(f"train: step seconds {[round(r['step_seconds'], 4) for r in hist]}"
+          f" (median of steps 2-{train_steps}: {step_s:.4f} s), data wait "
+          f"{[round(r['data_seconds'], 4) for r in hist]}; peak memory "
+          f"{peak_gb:.2f} GiB; {changed}/{n_params} parameter tensors changed;"
+          f" launches {train_launches} ({train_steps} steps); card {card}",
+          flush=True)
+    log(t0, "train phase done")
+    print(json.dumps({"train_step_profile": dict(
+        profile_train_step(trainer, train_batch), card=card)}), flush=True)
+    del trainer
+    torch.cuda.empty_cache()
+    log(t0, "train-step profile done")
 
     # one entry per kernel: its heaviest captured shape
     kernels = []
     for name, info in KERNEL_INFO.items():
         row = max((r for r in rows if r["name"] == name),
                   key=lambda r: r["bound_ms"])
+        by_path = {"test": slice_launches[name], "train": train_launches[name]}
         kernels.append(dict(
-            name=name, **info, launches=launches[name],
+            name=name, **info, launches=sum(by_path.values()),
+            launches_by_path=by_path,
+            launches_per_train_step=train_launches[name] / train_steps,
             max_abs_err=row["max_abs_err"], ms=row["ms"],
             plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
             bound_by=row["bound_by"], library_ms=row["library_ms"],
-            shape=row["shape"]))
+            shape=f"{row['phase']}: {row['shape']}"))
     return kernels
 
 
@@ -564,7 +896,7 @@ def main():
         print("chip_smoke.py needs a CUDA card (torch.cuda.is_available() is "
               "False)", file=sys.stderr)
         return 2
-    # a healthy run takes under a minute: a hang becomes a traceback
+    # a healthy run takes a minute or two: a hang becomes a traceback
     # and a non-zero exit well inside any caller's time limit
     faulthandler.dump_traceback_later(280, exit=True)
     t0 = time.perf_counter()
@@ -581,7 +913,7 @@ def main():
     log(t0, f"kernels built: one nvcc call, {built:.1f} s" if built is not None
         else f"kernels reused from {_native.BUILD_DIR}")
 
-    kernels = run(torch.device("cuda"), args.seed, t0)
+    kernels = run(torch.device("cuda"), args.seed, t0, card=card)
     faulthandler.cancel_dump_traceback_later()
     print(f"card: {card}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

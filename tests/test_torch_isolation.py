@@ -1,7 +1,8 @@
 """ao_tpu_torch and chip_smoke.py stand alone: they import neither JAX nor
-ao_tpu, build no extension through torch.utils.cpp_extension, and the
-smoke script's slice phase runs end to end (on the CPU, at a tiny size)
-with JAX and ao_tpu made unimportable."""
+ao_tpu (nor flax or optax), build no extension through
+torch.utils.cpp_extension, and the smoke script's slice phase and train
+phase run end to end (on the CPU, at a tiny size) with JAX and ao_tpu made
+unimportable."""
 
 import os
 import re
@@ -12,8 +13,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _CHILD = r"""
 import sys
-sys.modules["jax"] = None
-sys.modules["ao_tpu"] = None
+for name in ("jax", "ao_tpu", "flax", "optax"):
+    sys.modules[name] = None
 import importlib, pkgutil
 import ao_tpu_torch
 for m in pkgutil.walk_packages(ao_tpu_torch.__path__, "ao_tpu_torch."):
@@ -22,9 +23,19 @@ import chip_smoke
 res, votes, n_views = chip_smoke.run_slice(
     "cpu", 0, room_size=(1.0, 0.8, 0.5), views=1, pad_multiple=256)
 chip_smoke.check_votes(votes, n_views)
-assert not any(k == "jax" or k.startswith(("jax.", "ao_tpu.", "flax"))
+rooms = [chip_smoke.make_room(s, (0.8, 0.7, 0.5)) for s in (1, 2)]
+_, options = chip_smoke.train_setup(rooms, batch_size=2, max_steps=1,
+                                    workers=0)
+backbone = dict(patch_embed_channels=16, patch_embed_groups=2,
+                enc_channels=(16, 32, 64), enc_groups=(2, 4, 8),
+                dec_channels=(16, 16, 32), dec_groups=(2, 2, 4),
+                enc_depths=(1, 1, 1), patch_embed_depth=1)
+trainer = chip_smoke.run_train("cpu", options + [
+    f"model.backbone={backbone!r}", "pad_multiple=512"])
+chip_smoke.check_train(trainer, 1)
+assert not any(k == "jax" or k.startswith(("jax.", "ao_tpu.", "flax", "optax"))
                for k, v in sys.modules.items() if v is not None)
-print("ISOLATED", res["scenes"][0]["fragments"])
+print("ISOLATED", res["scenes"][0]["fragments"], trainer.history[0]["loss"])
 """
 
 
@@ -44,7 +55,14 @@ def test_port_sources_name_no_jax_no_ao_tpu_no_cpp_extension():
         files += [os.path.join(d, n) for n in names
                   if n.endswith((".py", ".cu", ".cuh"))]
     bad = re.compile(r"cpp_extension|import jax|from jax|ao_tpu\.|import ao_tpu\b"
+                     r"|import flax|from flax|import optax|from optax"
                      r"|torch/extension\.h|import triton")
+    names = {os.path.relpath(f, ROOT) for f in files}
+    for src in ("gva_pos.cu", "gva_stats.cu", "gva_bwd.cu"):
+        assert f"ao_tpu_torch/csrc/{src}" in names
+    for mod in ("engines/train.py", "tools/train.py", "models/losses/misc.py",
+                "utils/optimizer.py", "utils/scheduler.py"):
+        assert f"ao_tpu_torch/{mod}" in names
     hits = []
     for f in files:
         with open(f) as fh:
