@@ -16,47 +16,36 @@
 // sum pos pos^T (9). The host takes mean = sum t / n and the biased
 // variance max(sum t^2 / n - mean^2, 0), as _fwd_inner :526-528 does.
 //
-// What bounds it on the card: arithmetic, as for K3 (gva_eval.cu): the
-// pe-MLP's (Nq*S, C) x (C, C) product is 2*S*C^2 operations per query.
-// The design is K3's first four stages (one block of 128 threads holds TQ
-// queries with TQ*C ~ 384 and their S gathered neighbours; pe1 and the
-// relation live in shared memory as their bf16 roundings; Wp2 and W1 stay
-// in L2-resident device memory), run by a persistent grid: each block
-// walks tiles blockIdx.x, blockIdx.x + gridDim.x, ... and keeps its 2G+13
-// sums in shared memory, written once as one row of partial sums. The
-// wrapper adds the rows in f64, so no f32 atomics chain into one scalar.
+// What bounds it on the card: arithmetic. The pe-MLP's (Nq*S, C) x (C, C)
+// product is 2*S*C^2 operations per query against ~S*(2C+6)*2 bytes of
+// gathered rows, far above the card's balance point; on CUDA cores in f32
+// (the first design) it ran at 0.3-1.3% of the bf16 tensor-core bound.
+// The design: the tile routine of gva_tile.cuh. A persistent grid (as
+// many blocks of 256 threads as the SMs hold) walks tiles of R = 128 edges
+// (C <= 96) or 64 (C >= 192); both products (peb and t) run on tensor
+// cores (mma.sync m16n8k16, bf16 in, f32 accumulate) with Wp2 and W1
+// staged in shared memory once per block (Wp2 streamed by cp.async at
+// C = 384); pe1 and the relation live in shared memory as their bf16
+// roundings. Each block keeps its 2G+13 sums in shared memory and writes
+// them once as its row of partial sums; the wrapper adds the rows in f64,
+// so no f32 atomics chain into one scalar and the count stays exact.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "gva_tile.cuh"
 
 namespace {
 
-using bf16 = __nv_bfloat16;
-
-__device__ __forceinline__ float bf(bf16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ float rbf(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
-__device__ __forceinline__ void load4(const bf16* p, float& a, float& b,
-                                      float& c, float& d) {
-  const uint2 u = *reinterpret_cast<const uint2*>(p);
-  const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
-  const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
-  a = lo.x;
-  b = lo.y;
-  c = hi.x;
-  d = hi.y;
+// shared memory of one block: pe1 and relation tiles, Wp2 (or its ring),
+// W1 transposed, then t, positions, validity, the sums and the row ids
+template <int C>
+constexpr size_t stats_smem() {
+  using T = Tile<C>;
+  return sizeof(bf16) * ((2 * T::R + (T::kStream ? 2 * kSlab : C) + T::Gp) *
+                         (size_t)T::ldc) +
+         sizeof(float) * ((size_t)T::R * T::G + 5 * T::R + 2 * T::G + 13) +
+         sizeof(int) * T::R;
 }
 
-constexpr int kThreads = 128;
-constexpr int kTileWork = 384;  // TQ * C per block, as in gva_eval.cu
-
-__host__ __device__ inline int tile_queries(int C) {
-  return C >= kTileWork ? 1 : kTileWork / C;
-}
-
-template <int S>
+template <int C>
 __global__ void __launch_bounds__(kThreads) gva_stats_kernel(
     const bf16* __restrict__ src,       // (B, Nsrc, 2C+6)
     const bf16* __restrict__ qrow,      // (B, Nq, C+7)
@@ -69,24 +58,26 @@ __global__ void __launch_bounds__(kThreads) gva_stats_kernel(
     const bf16* __restrict__ W1,        // (C, G) unfolded
     const float* __restrict__ b1,       // (G)
     float* __restrict__ part,           // (gridDim.x, 2G + 13)
-    int B, int Nsrc, int Nq, int C, int G) {
-  const int TQ = tile_queries(C);
-  const int R = TQ * S;
-  const int rw = 2 * C + 6;
-  const int qw = C + 7;
-  const int P = 2 * G + 13;
+    int B, int Nsrc, int Nq) {
+  using T = Tile<C>;
+  constexpr int G = T::G, R = T::R, TQ = T::TQ, ld = T::ldc;
+  constexpr int P = 2 * G + 13, rw = 2 * C + 6, qw = C + 7;
   const int ntq = (Nq + TQ - 1) / TQ;
   const int ntiles = B * ntq;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* tt = reinterpret_cast<float*>(smem_raw);  // R*G
-  float* pos = tt + R * G;                         // R*4, f32 (unrounded)
+  bf16* pe1b = reinterpret_cast<bf16*>(smem_raw);  // R x ld
+  bf16* rr = pe1b + R * ld;                        // R x ld: the relation
+  bf16* wsm = rr + R * ld;                         // Wp2, or the slab ring
+  bf16* w1t = wsm + (T::kStream ? 2 * kSlab : C) * ld;  // Gp x ld
+  float* tt = reinterpret_cast<float*>(w1t + T::Gp * ld);  // R x G
+  float* pos = tt + R * G;                         // R x 4, f32 (unrounded)
   float* vld = pos + R * 4;                        // R
   float* acc = vld + R;                            // P
   int* rid = reinterpret_cast<int*>(acc + P);      // R
-  bf16* pe1 = reinterpret_cast<bf16*>(rid + R + ((R * G + 5 * R + P + R) & 1));
-  bf16* rr = pe1 + R * C;                          // R*C
   const int tid = threadIdx.x;
 
+  if constexpr (!T::kStream) stage_square<T>(wsm, Wp2);
+  stage_w1t<T>(w1t, W1);
   for (int e = tid; e < P; e += kThreads) acc[e] = 0.f;
 
   for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
@@ -94,85 +85,35 @@ __global__ void __launch_bounds__(kThreads) gva_stats_kernel(
     const int q0 = (tile - b * ntq) * TQ;
     const bf16* srcb = src + (size_t)b * Nsrc * rw;
 
-    // 0: slot rows, validity and relative positions
-    for (int e = tid; e < R; e += kThreads) {
-      const int q = q0 + e / S;
-      float v = 0.f, p0 = 0.f, p1 = 0.f, p2 = 0.f;
-      int id = 0;
-      if (q < Nq) {
-        const size_t o = ((size_t)b * Nq + q) * S + e % S;
-        id = min(max(idx[o], 0), Nsrc - 1);
-        v = valid[o] ? 1.f : 0.f;
-        const bf16* kc = srcb + (size_t)id * rw + 2 * C;
-        const bf16* qc = qrow + ((size_t)b * Nq + q) * qw + C;
-        p0 = ((bf(kc[0]) + bf(kc[3])) - (bf(qc[0]) + bf(qc[3]))) * v;
-        p1 = ((bf(kc[1]) + bf(kc[4])) - (bf(qc[1]) + bf(qc[4]))) * v;
-        p2 = ((bf(kc[2]) + bf(kc[5])) - (bf(qc[2]) + bf(qc[5]))) * v;
-      }
-      rid[e] = id;
-      vld[e] = v;
-      pos[4 * e + 0] = p0;
-      pos[4 * e + 1] = p1;
-      pos[4 * e + 2] = p2;
-    }
+    gather_slots<T>(srcb, qrow, idx, valid, b, q0, Nsrc, Nq, rid, vld, pos);
+    __syncthreads();
+    pe1_rows<T>(A, cA, pos, vld, pe1b);
     __syncthreads();
 
-    // 1: pe1 = relu((pos @ A + cA) * valid), kept as its bf16 rounding
-    for (int e = tid; e < R * C; e += kThreads) {
-      const int r = e / C, j = e - r * C;
-      const float a = rbf(pos[4 * r]) * bf(A[j]) +
-                      rbf(pos[4 * r + 1]) * bf(A[C + j]) +
-                      rbf(pos[4 * r + 2]) * bf(A[2 * C + j]);
-      pe1[e] = __float2bfloat16_rn(fmaxf((a + cA[j]) * vld[r], 0.f));
-    }
+    // 2: peb = bf16(pe1) @ bf16(Wp2) + bp2 on tensor cores; the relation
+    //    k - q + peb kept as its bf16 rounding
+    mm_wp2<T, false>(
+        wsm, Wp2, wsm,
+        [&](uint32_t(&a)[4], int m0, int k0) { frag_a(a, pe1b, ld, m0, k0); },
+        [&](int m0, int n0, auto& ac) {
+          each_pair(ac, m0, n0, [&](int r, int c, float x0, float x1) {
+            const int q = q0 + r / kS;
+            float q0v = 0.f, q1v = 0.f;
+            if (q < Nq) {
+              const bf16* qr = qrow + ((size_t)b * Nq + q) * qw + c;
+              q0v = bf(qr[0]);
+              q1v = bf(qr[1]);
+            }
+            const float2 k = unpack2(
+                *reinterpret_cast<const uint32_t*>(srcb + (size_t)rid[r] * rw + c));
+            *reinterpret_cast<uint32_t*>(rr + r * ld + c) =
+                pack2((k.x - q0v) + (x0 + bp2[c]), (k.y - q1v) + (x1 + bp2[c + 1]));
+          });
+        });
     __syncthreads();
 
-    // 2: per (query, channel c): peb of the S slots, then the relation
-    for (int e = tid; e < TQ * C; e += kThreads) {
-      const int qi = e / C, c = e - qi * C;
-      const int q = q0 + qi;
-      float a[S];
-#pragma unroll
-      for (int s = 0; s < S; ++s) a[s] = 0.f;
-      const bf16* p = pe1 + (size_t)qi * S * C;
-      for (int j = 0; j < C; j += 4) {
-        const float w0 = bf(Wp2[(size_t)(j + 0) * C + c]);
-        const float w1 = bf(Wp2[(size_t)(j + 1) * C + c]);
-        const float w2 = bf(Wp2[(size_t)(j + 2) * C + c]);
-        const float w3 = bf(Wp2[(size_t)(j + 3) * C + c]);
-#pragma unroll
-        for (int s = 0; s < S; ++s) {
-          float x0, x1, x2, x3;
-          load4(p + s * C + j, x0, x1, x2, x3);
-          a[s] += x0 * w0 + x1 * w1 + x2 * w2 + x3 * w3;
-        }
-      }
-      const float qv = q < Nq ? bf(qrow[((size_t)b * Nq + q) * qw + c]) : 0.f;
-      const float bias = bp2[c];
-#pragma unroll
-      for (int s = 0; s < S; ++s) {
-        const int r = qi * S + s;
-        rr[(size_t)r * C + c] =
-            __float2bfloat16_rn(bf(srcb[(size_t)rid[r] * rw + c]) - qv + a[s] + bias);
-      }
-    }
-    __syncthreads();
-
-    // 3: t = (relation @ W1 + b1) * valid
-    for (int e = tid; e < R * G; e += kThreads) {
-      const int r = e / G, g = e - r * G;
-      const bf16* x = rr + (size_t)r * C;
-      float a = 0.f;
-      for (int j = 0; j < C; j += 4) {
-        float x0, x1, x2, x3;
-        load4(x + j, x0, x1, x2, x3);
-        a += x0 * bf(W1[(size_t)(j + 0) * G + g]) +
-             x1 * bf(W1[(size_t)(j + 1) * G + g]) +
-             x2 * bf(W1[(size_t)(j + 2) * G + g]) +
-             x3 * bf(W1[(size_t)(j + 3) * G + g]);
-      }
-      tt[e] = (a + b1[g]) * vld[r];
-    }
+    // 3: t = (bf16(relation) @ bf16(W1) + b1) * valid on tensor cores
+    t_rows<T>(rr, w1t, b1, vld, tt);
     __syncthreads();
 
     // 4: this tile's sums: [sum t | sum t^2 | count | sum pos | sum pos pos^T]
@@ -200,8 +141,41 @@ __global__ void __launch_bounds__(kThreads) gva_stats_kernel(
   for (int e = tid; e < P; e += kThreads) part[(size_t)blockIdx.x * P + e] = acc[e];
 }
 
+template <int C>
+cudaError_t stats_attr() {
+  constexpr size_t smem = stats_smem<C>();
+  static_assert(smem <= 227 * 1024, "shared memory of one block");
+  return cudaFuncSetAttribute(gva_stats_kernel<C>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
+
+template <int C>
+int stats_run(const void* src, const void* qrow, const void* idx,
+              const void* valid, const void* A, const void* cA, const void* Wp2,
+              const void* bp2, const void* W1, const void* b1, void* part,
+              int B, int Nsrc, int Nq, int nblk, void* stream) {
+  cudaError_t e = stats_attr<C>();
+  if (e != cudaSuccess) return e;
+  gva_stats_kernel<C><<<nblk, kThreads, stats_smem<C>(), (cudaStream_t)stream>>>(
+      (const bf16*)src, (const bf16*)qrow, (const int*)idx,
+      (const uint8_t*)valid, (const bf16*)A, (const float*)cA,
+      (const bf16*)Wp2, (const float*)bp2, (const bf16*)W1, (const float*)b1,
+      (float*)part, B, Nsrc, Nq);
+  return cudaGetLastError();
+}
+
+template <int C>
+int stats_occupancy(int* blocks) {
+  cudaError_t e = stats_attr<C>();
+  if (e != cudaSuccess) return e;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, gva_stats_kernel<C>, kThreads, stats_smem<C>());
+}
+
 }  // namespace
 
+// The instances: S = 16 and group width C / G = 8 at C = 48, 96, 192, 384,
+// every stage of the S3DIS config.
 extern "C" int gva_stats_launch(const void* src, const void* qrow,
                                 const void* idx, const void* valid,
                                 const void* A, const void* cA, const void* Wp2,
@@ -209,26 +183,28 @@ extern "C" int gva_stats_launch(const void* src, const void* qrow,
                                 const void* b1, void* part, int B, int Nsrc,
                                 int Nq, int S, int C, int G, int nblk,
                                 void* stream) {
-  if (C % 4 != 0 || G < 1 || C % G != 0 || Nsrc < 1 || nblk < 1)
-    return cudaErrorInvalidValue;
-  // S = 16, the neighbours of every stage of the S3DIS config
-  if (S != 16) return cudaErrorInvalidValue;
-  const int TQ = tile_queries(C);
-  const int R = TQ * S;
-  const int P = 2 * G + 13;
-  const size_t smem = sizeof(float) * ((size_t)R * G + 5 * R + P + 1) +
-                      sizeof(int) * R + 2 * sizeof(bf16) * (size_t)R * C;
-  if (smem > 227 * 1024) return cudaErrorInvalidValue;
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        gva_stats_kernel<16>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return e;
+  if (S != kS || G * 8 != C || Nsrc < 1 || nblk < 1) return cudaErrorInvalidValue;
+#define AO_STATS(CC)                                                          \
+  case CC:                                                                    \
+    return stats_run<CC>(src, qrow, idx, valid, A, cA, Wp2, bp2, W1, b1, part, \
+                         B, Nsrc, Nq, nblk, stream);
+  switch (C) {
+    AO_STATS(48)
+    AO_STATS(96)
+    AO_STATS(192)
+    AO_STATS(384)
   }
-  gva_stats_kernel<16><<<nblk, kThreads, smem, (cudaStream_t)stream>>>(
-      (const bf16*)src, (const bf16*)qrow, (const int*)idx,
-      (const uint8_t*)valid, (const bf16*)A, (const float*)cA,
-      (const bf16*)Wp2, (const float*)bp2, (const bf16*)W1, (const float*)b1,
-      (float*)part, B, Nsrc, Nq, C, G);
-  return cudaGetLastError();
+#undef AO_STATS
+  return cudaErrorInvalidValue;
+}
+
+// blocks of gva_stats_kernel<C> one SM holds (shared memory, registers)
+extern "C" int gva_stats_blocks_per_sm(int C, int* blocks) {
+  switch (C) {
+    case 48: return stats_occupancy<48>(blocks);
+    case 96: return stats_occupancy<96>(blocks);
+    case 192: return stats_occupancy<192>(blocks);
+    case 384: return stats_occupancy<384>(blocks);
+  }
+  return cudaErrorInvalidValue;
 }

@@ -49,9 +49,16 @@ _SIGNATURES = {
     # src, qrow, idx, valid, A, cA, Wp2, bp2, W1, b1, part,
     # B, Nsrc, Nq, S, C, G, nblk, stream
     "gva_stats_launch": [_P] * 11 + [_I] * 7 + [_P],
-    # src, qrow, idx, valid, A, cA, Wp2, Wp2T, bp2, W1f, W1fT, b1f, W2, b2,
-    # dout, dkv, dq, mom, qmom, part, B, Nsrc, Nq, S, C, G, nblk, stream
-    "gva_bwd_launch": [_P] * 20 + [_I] * 7 + [_P],
+    # src, qrow, idx, valid, A, cA, Wp2, Wp2T, bp2, W1f, b1f, W2, b2, dout,
+    # dkv, dq, mom, qmom, part, scratch, B, Nsrc, Nq, S, C, G, nblk, nrow,
+    # nsplit, stream
+    "gva_bwd_launch": [_P] * 20 + [_I] * 9 + [_P],
+    # C: K6's per-edge scratch width (0: none), its sums pass' output tiles
+    "gva_bwd_scratch_width": [_I],
+    "gva_bwd_sums_tiles": [_I],
+    # C, &blocks: blocks of the persistent kernel one SM holds
+    "gva_stats_blocks_per_sm": [_I, ctypes.POINTER(_I)],
+    "gva_bwd_blocks_per_sm": [_I, ctypes.POINTER(_I)],
 }
 
 _lib = None

@@ -15,6 +15,10 @@ slab-mode AND gathered-mode kernel of the same function:
   backward, with the moments the BN-statistics' gradient is linear in
   (``_bwd_kernel``, and ``_bwd_stats_kernel`` of the gathered family).
 
+K5 and K6 share the tensor-core tile routine of ``gva_tile.cuh`` and are
+built for the (C, G) instances of the S3DIS config (C = 48, 96, 192, 384,
+G = C / 8, S = 16).
+
 The kernels gather neighbour rows themselves, so one kernel serves both
 call modes: the caller passes sorted or unsorted source rows with the
 matching neighbour ids.
@@ -39,6 +43,7 @@ after) that the kernels do not model; autograd differentiates it.
 
 from __future__ import annotations
 
+import ctypes
 import math
 from typing import Dict
 
@@ -289,6 +294,7 @@ def gva_stats(src, qrow, idx, valid, A, cA, Wp2, bp2, W1, b1):
         return gva_stats_plain(src, qrow, idx, valid, A, cA, Wp2, bp2, W1, b1)
     args = _check_rows("gva_stats", src, qrow, idx, valid)
     G = W1.shape[1]
+    C = qrow.shape[-1] - 7
     bf = torch.bfloat16
     args += [A.to(bf).contiguous(), cA.float().contiguous(),
              Wp2.to(bf).contiguous(), bp2.float().contiguous(),
@@ -296,10 +302,9 @@ def gva_stats(src, qrow, idx, valid, A, cA, Wp2, bp2, W1, b1):
     _native.require_cuda("gva_stats", *args)
     B, Nsrc, _ = src.shape
     Nq, S = idx.shape[1:]
-    C = qrow.shape[-1] - 7
-    # a row of 2G + 13 partial sums per block costs nothing, so the grid
-    # is as large as shared memory lets the SMs hold (about four blocks)
-    nblk = max(1, min(B * -(-Nq // _tile_queries(C)), 8 * _sm_count(src.device)))
+    # one row of 2G + 13 partial sums per block: as many blocks as the
+    # SMs hold at once
+    nblk = _grid("gva_stats", src.device, C, B * -(-Nq // _tile_queries(C)))
     part = torch.empty((nblk, 2 * G + 13), dtype=torch.float32,
                        device=src.device)
     err = _native.lib().gva_stats_launch(
@@ -316,8 +321,44 @@ gva_stats.launches = 0
 
 
 def _tile_queries(C):
-    """Queries per block of K3, K5 and K6 (csrc: tile_queries)."""
-    return 1 if C >= 384 else 384 // C
+    """Queries per tile of K5 and K6 (csrc/gva_tile.cuh: Tile<C>::TQ)."""
+    return 8 if C <= 96 else 4
+
+
+_OCCUPANCY = {}
+_WORKSPACE = {}
+# partial rows K6's blocks add their parameter sums into (block k into row
+# k % rows): few enough that the rows stay in L2
+_BWD_PART_ROWS = 16
+
+
+def _workspace(device, numel):
+    """A bf16 buffer of at least ``numel`` elements for work on the current
+    stream of ``device``, kept and grown across calls: K6's scratch rows take
+    0.4-0.6 GB per call at the train step's C >= 192 stages, and a fresh
+    allocation of that size each call fragments the caching allocator's pool
+    until it has to free and synchronise. One buffer per (device, stream):
+    the calls on one stream run in order, so they may share it; a call on
+    another stream gets its own."""
+    key = (device, torch.cuda.current_stream(device).cuda_stream)
+    buf = _WORKSPACE.get(key)
+    if buf is None or buf.numel() < numel:
+        _WORKSPACE.pop(key, None)
+        buf = _WORKSPACE[key] = torch.empty(max(numel, 1), dtype=torch.bfloat16,
+                                            device=device)
+    return buf
+
+
+def _grid(name, device, C, tiles):
+    """Blocks of the persistent K5 / K6 grid: as many as the SMs hold at
+    once (the kernel's own occupancy query), at most one per tile."""
+    key = (name, C, device)
+    if key not in _OCCUPANCY:
+        n = ctypes.c_int(0)
+        _native.check(getattr(_native.lib(), f"{name}_blocks_per_sm")(
+            C, ctypes.byref(n)), name)
+        _OCCUPANCY[key] = max(n.value, 1) * _sm_count(device)
+    return max(1, min(tiles, _OCCUPANCY[key]))
 
 
 def bwd_par_layout(C, G):
@@ -402,35 +443,41 @@ def gva_bwd(src, qrow, idx, valid, fp, dout):
     if src.device.type == "cpu":
         return gva_bwd_plain(src, qrow, idx, valid, fp, dout)
     args = _check_rows("gva_bwd", src, qrow, idx, valid)
-    bf = torch.bfloat16
-    Wp2, W1f = fp["Wp2"].to(bf), fp["W1f"].to(bf)
-    args += [fp["A"].to(bf).contiguous(), fp["cA"].float().contiguous(),
-             Wp2.contiguous(), Wp2.t().contiguous(),
-             fp["bp2"].float().contiguous(), W1f.contiguous(),
-             W1f.t().contiguous(), fp["b1f"].float().contiguous(),
-             fp["W2"].float().contiguous(), fp["b2"].float().contiguous(),
-             dout.float().contiguous()]
-    _native.require_cuda("gva_bwd", *args)
     B, Nsrc, _ = src.shape
     Nq, S = idx.shape[1:]
     C = qrow.shape[-1] - 7
     G = fp["W2"].shape[0]
-    K = C // G
-    if K > 32 or K & (K - 1):
-        raise ValueError(f"gva_bwd: group width {K} is not a power of two "
-                         f"up to 32")
+    bf = torch.bfloat16
+    Wp2 = fp["Wp2"].to(bf).contiguous()
+    # the kernel stages Wp2 in shared memory and reads it both ways; at
+    # C = 384 it streams the weight from device memory, Wp2^T for dpe0
+    Wp2T = Wp2.t().contiguous() if C > 192 else Wp2
+    args += [fp["A"].to(bf).contiguous(), fp["cA"].float().contiguous(),
+             Wp2, Wp2T, fp["bp2"].float().contiguous(),
+             fp["W1f"].to(bf).contiguous(), fp["b1f"].float().contiguous(),
+             fp["W2"].float().contiguous(), fp["b2"].float().contiguous(),
+             dout.float().contiguous()]
+    _native.require_cuda("gva_bwd", *args)
     P = sum(math.prod(s) for _, s in bwd_par_layout(C, G))
-    nblk = max(1, min(B * -(-Nq // _tile_queries(C)), 2 * _sm_count(src.device)))
+    nblk = _grid("gva_bwd", src.device, C, B * -(-Nq // _tile_queries(C)))
+    # partial rows: blocks k, k + nrow, ... add into row k
+    nrow = min(nblk, _BWD_PART_ROWS)
     dev = src.device
     dkv = torch.zeros((B, Nsrc, 2 * C), dtype=torch.float32, device=dev)
     dq = torch.empty((B, Nq, C), dtype=torch.float32, device=dev)
     mom = torch.zeros((B, Nsrc, 1 + G), dtype=torch.float32, device=dev)
     qmom = torch.empty((B, Nq, 1 + G), dtype=torch.float32, device=dev)
-    part = torch.zeros((nblk, P), dtype=torch.float32, device=dev)
-    err = _native.lib().gva_bwd_launch(
+    part = torch.zeros((nrow, P), dtype=torch.float32, device=dev)
+    # C >= 192: per-edge bf16 rows for the split-K pass that sums dWp2 and
+    # the moment, spread over about four blocks per SM
+    lib = _native.lib()
+    W = lib.gva_bwd_scratch_width(C)
+    scr = _workspace(dev, B * Nq * S * W)
+    nsplit = -(-4 * _sm_count(dev) // lib.gva_bwd_sums_tiles(C)) if W else 1
+    err = lib.gva_bwd_launch(
         *[a.data_ptr() for a in args], dkv.data_ptr(), dq.data_ptr(),
-        mom.data_ptr(), qmom.data_ptr(), part.data_ptr(), B, Nsrc, Nq, S, C,
-        G, nblk, _native.stream_ptr(part))
+        mom.data_ptr(), qmom.data_ptr(), part.data_ptr(), scr.data_ptr(), B,
+        Nsrc, Nq, S, C, G, nblk, nrow, nsplit, _native.stream_ptr(part))
     _native.check(err, "gva_bwd")
     gva_bwd.launches += 1
     return dkv, dq, part.sum(0), mom, qmom

@@ -367,6 +367,8 @@ def check_gva_stats(args, out_k, out_p):
     edges = float(out_p[2])
     nbytes = (B * Nsrc * (C + 6) * 2 + B * Nq * (C + 7) * 2
               + _nbytes(idx, valid, A, cA, Wp2, bp2, W1, b1) + (2 * G + 13) * 4)
+    # the products pe0 (K = 3, bf16 operands), peb and t at the bf16 rate;
+    # the elementwise steps and sums at the f32 rate
     mm = edges * (2 * 3 * C + 2 * C * C + 2 * C * G)
     bound_ms, by = _bound(nbytes, bf16_ops=mm, f32_ops=edges * (6 * C + 6 * G))
     return ok, max(errs), bound_ms, by, None, "rel " + " ".join(notes)
@@ -411,8 +413,13 @@ def check_gva_bwd(args, out_k, out_p):
     nbytes = (_nbytes(src, qrow, idx, valid, dout, *fp.values())
               + B * Nsrc * (2 * C + 1 + G) * 4 + B * Nq * (C + 1 + G) * 4
               + P * 4)
-    mm = edges * (2 * 3 * C + 4 * C * C + 4 * C * G + 12 * C * (1 + G))
-    f32 = edges * (2 * C * C + 2 * C * G + 6 * G * G + 6 * C + 30 * C)
+    # at the bf16 rate the products with bf16 operands (as the TPU kernel):
+    # pe0 (K = 3), peb and dpe0 and the sum pe1^T dpeb (C x C each), t, dr
+    # and the sum r^T dt (C x G each), the (1 + G) x 6C moment; at the f32
+    # rate the three G x G products (f32 operands), the softmax and the
+    # elementwise steps
+    mm = edges * (2 * 3 * C + 6 * C * C + 6 * C * G + 12 * C * (1 + G))
+    f32 = edges * (6 * G * G + 36 * C)
     bound_ms, by = _bound(nbytes, bf16_ops=mm, f32_ops=f32)
     return ok, max(errs), bound_ms, by, None, "rel " + " ".join(notes)
 
@@ -653,6 +660,17 @@ def check_votes(votes, n_views):
         raise RuntimeError("a point missed the vote of some view")
 
 
+def _by_kernel(events):
+    """Device ms and launches of each port kernel in a profile (K6's sums
+    pass counts with K6)."""
+    out = {}
+    for name in KERNEL_INFO:
+        hits = [e for e in events if name in e.key]
+        out[name] = dict(ms=sum(e.self_device_time_total for e in hits) / 1e3,
+                         launches=sum(e.count for e in hits))
+    return out
+
+
 def profile_forward(model, batch, device):
     """Time one eval forward of a (label, coord, feat, mask) batch (CUDA
     events), then trace one with torch.profiler: device time by kernel
@@ -675,7 +693,8 @@ def profile_forward(model, batch, device):
                 calls=e.count) for e in events[:12]]
     return dict(shape=list(mask.shape), points=int(mask.sum()),
                 wall_ms=wall_ms, device_ms=device_ms,
-                busy_share=device_ms / wall_ms, top=top)
+                busy_share=device_ms / wall_ms, top=top,
+                port_kernels=_by_kernel(events))
 
 
 # ---------------------------------------------------------------------------
@@ -764,7 +783,8 @@ def profile_train_step(trainer, batch):
                 calls=e.count) for e in events[:15]]
     return dict(shape=list(batch["mask"].shape),
                 points=int(batch["mask"].sum()), wall_ms=wall_ms,
-                device_ms=device_ms, busy_share=device_ms / wall_ms, top=top)
+                device_ms=device_ms, busy_share=device_ms / wall_ms, top=top,
+                port_kernels=_by_kernel(events))
 
 
 def _wrappers():

@@ -58,7 +58,7 @@ def test_port_sources_name_no_jax_no_ao_tpu_no_cpp_extension():
                      r"|import flax|from flax|import optax|from optax"
                      r"|torch/extension\.h|import triton")
     names = {os.path.relpath(f, ROOT) for f in files}
-    for src in ("gva_pos.cu", "gva_stats.cu", "gva_bwd.cu"):
+    for src in ("gva_pos.cu", "gva_stats.cu", "gva_bwd.cu", "gva_tile.cuh"):
         assert f"ao_tpu_torch/csrc/{src}" in names
     for mod in ("engines/train.py", "tools/train.py", "models/losses/misc.py",
                 "utils/optimizer.py", "utils/scheduler.py"):

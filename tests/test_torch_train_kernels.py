@@ -273,3 +273,65 @@ def test_fully_masked_query_tile_adds_nothing(case):
     assert torch.isfinite(gq).all() and torch.isfinite(gk).all()
     assert float(gq[:, :TQ].abs().max()) == 0.0
     assert float(gq[:, N:].abs().max()) == 0.0
+
+
+def _bwd_weight_sums(src, qrow, idx, valid, fp, dout, round_operands):
+    """The three weight sums of gva_bwd_plain that K6 takes on tensor cores
+    or may round (dWp2 = pe1^T dpeb, dW1f = r^T dt, dW2 = relu(t)^T dw),
+    from the plain version's own intermediates; with ``round_operands`` each
+    operand is rounded to bf16 first and the sum accumulated in f32."""
+    B, Nq, S = idx.shape
+    C = qrow.shape[-1] - 7
+    G = fp["W2"].shape[0]
+    env = tg._recompute(src, qrow, idx, valid, fp["A"], fp["cA"], fp["Wp2"],
+                        fp["bp2"], fp["W1f"], fp["b1f"])
+    vf, t = env["vf"], env["t"]
+    sm = tg._softmax_slots(t, fp["W2"], fp["b2"], valid)
+    d = (dout * env["mrow"][..., None])[:, :, None]
+    dsm = (env["v2"] * d).reshape(B, Nq, S, G, C // G).sum(-1)
+    dw = sm * (dsm - (sm * dsm).sum(2, keepdim=True))
+    dt = torch.where(t > 0, dw @ fp["W2"].T, 0.0) * vf
+    dr = tg._bf(dt) @ tg._bf(fp["W1f"]).T
+    dpeb = dr + sm.repeat_interleave(C // G, dim=-1) * d
+    op = tg._bf if round_operands else (lambda x: x)
+
+    def ssum(a, b):
+        return torch.einsum("bnsi,bnsj->ij", op(a), op(b))
+
+    return dict(dWp2=ssum(env["pe1"], dpeb), dW1f=ssum(env["r"], dt),
+                dW2=ssum(torch.relu(t), dw))
+
+
+@pytest.mark.parametrize("C,G", [(16, 2), (32, 4), (24, 6)])
+def test_bf16_operand_weight_sums_within_k6_band(C, G):
+    """K6 sums pe1^T dpeb and r^T dt on tensor cores with bf16 operands and
+    f32 accumulation, as the TPU kernel's _mtm products do, where the plain
+    version sums the f32 values. The same sums with rounded operands (and
+    relu(t)^T dw, which K6 keeps in f32) stay inside the band chip_smoke.py
+    holds K6 to against the plain version, 1e-2 of each sum's scale
+    (measured here: dWp2 up to 1.1e-3, dW1f up to 3.8e-3, dW2 up to 4.4e-3,
+    the last two at C=24, G=6). The unrounded sums of the helper are the
+    plain version's own to 1e-6."""
+    rng = np.random.default_rng(11 + C)
+    Bq, Nq, S = 2, 64, 16
+    f = lambda *s, m=1.0: torch.from_numpy((rng.normal(size=s) * m).astype(np.float32))
+    coord = torch.from_numpy(rng.uniform(0, 2, (Bq, Nq, 3)).astype(np.float32))
+    mask = torch.from_numpy(rng.random((Bq, Nq)) < 0.95)
+    src = torch.cat([f(Bq, Nq, C, m=0.5).bfloat16(), f(Bq, Nq, C, m=0.5).bfloat16(),
+                     tg.pack_coords(coord)], -1)
+    qrow = torch.cat([f(Bq, Nq, C, m=0.5).bfloat16(), tg.pack_coords(coord),
+                      mask[..., None].bfloat16()], -1)
+    idx = torch.from_numpy(rng.integers(0, Nq, (Bq, Nq, S)).astype(np.int32))
+    valid = torch.from_numpy(rng.random((Bq, Nq, S)) < 0.9) & mask[..., None]
+    fp = dict(A=f(3, C, m=0.5), cA=f(C, m=0.1), Wp2=f(C, C, m=C ** -0.5),
+              bp2=f(C, m=0.1), W1f=f(C, G, m=C ** -0.5), b1f=f(G, m=0.1),
+              W2=f(G, G, m=G ** -0.5), b2=f(G, m=0.1))
+    dout = f(Bq, Nq, C)
+    par = tg._split_par(tg.gva_bwd_plain(src, qrow, idx, valid, fp, dout)[2], C, G)
+    exact = _bwd_weight_sums(src, qrow, idx, valid, fp, dout, False)
+    rounded = _bwd_weight_sums(src, qrow, idx, valid, fp, dout, True)
+    for name in ("dWp2", "dW1f", "dW2"):
+        scale = float(par[name].abs().max())
+        assert float((exact[name] - par[name]).abs().max()) <= 1e-6 * scale, name
+        gap = float((rounded[name] - par[name]).abs().max()) / scale
+        assert gap <= 1e-2, (name, gap)

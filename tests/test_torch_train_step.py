@@ -89,7 +89,11 @@ def _jax_grads(cfg, jmodel, arrays, params, stats, train):
             not train, mutable=["batch_stats", "diagnostics"])
         return criteria(logits, seg, mask), mut
 
-    return jax.jit(jax.value_and_grad(loss_fn, has_aux=True))(params)
+    # op by op: the jitted whole model's own gradients move by up to ~1e-2
+    # of their norm when the input features move by 1e-7, so the port is
+    # held to the reference's unfused arithmetic
+    with jax.disable_jit():
+        return jax.value_and_grad(loss_fn, has_aux=True)(params)
 
 
 def test_train_step_matches_jax(tmp_path):
@@ -97,13 +101,11 @@ def test_train_step_matches_jax(tmp_path):
     collated batch and weights. Tight: the loss (1e-4 relative; measured
     2.7e-5), the pool-overflow count (exact) and the updated running
     statistics (1e-4). The gradients, per parameter tensor as
-    |g_port - g_jax| / |g_jax| (Frobenius), within 0.15 (measured median
-    3e-2, largest 9e-2): as in test_eval_mode_gradients_match_jax each
+    |g_port - g_jax| / |g_jax| (Frobenius), against jax.grad run op by op
+    (_jax_grads), within 5e-3 (measured median 4.2e-4, largest 1.6e-3: each
     gradient is a nearly cancelling sum over the points, and in train mode
-    the batch-statistic BatchNorms also amplify the frameworks' f32
-    differences stage by stage towards the input (the logits already
-    differ by ~1e-5; jax.grad's own gradients move by a median 5e-4 when
-    the input features move by 1e-6). Gradients that are zero up to
+    the batch-statistic BatchNorms amplify the frameworks' f32 differences
+    stage by stage towards the input). Gradients that are zero up to
     rounding within 1e-2 of the largest. Each module holds tightly on its
     own (test_torch_train_model.py: a BlockSequence in f32 to 3e-6). After
     the step the parameters equal optax.adamw's update of the initial
@@ -129,7 +131,7 @@ def test_train_step_matches_jax(tmp_path):
         if name.endswith(_ZERO_GRAD):
             assert max(np.abs(g).max(), np.abs(tg).max()) < 1e-2 * gmax, name
         else:
-            assert np.linalg.norm(tg - g) < 0.15 * np.linalg.norm(g), name
+            assert np.linalg.norm(tg - g) < 5e-3 * np.linalg.norm(g), name
     # the optimizer step on the port's own gradients
     tx = jax_build_optimizer(cfg["optimizer"], None, cfg["scheduler"],
                              trainer.total_steps)
@@ -145,13 +147,13 @@ def test_train_step_matches_jax(tmp_path):
 def test_eval_mode_gradients_match_jax(tmp_path):
     """The whole backward (head, decoder, unpooling, grid pools, every
     block's unfused GVA, the patch embedding) with running-statistic
-    BatchNorms against jax.grad. The loss within 1e-5 (measured 8.5e-7).
-    Per parameter tensor, |g_port - g_jax| / |g_jax| (Frobenius) within
-    0.05 (measured median 5.3e-4, largest 2e-2): at random weights each
-    gradient is a sum over ~10^4 points of terms that nearly cancel (the
-    weight-encoding biases sum softmax-centred terms), which multiplies the
-    frameworks' ~1e-7 differences in every activation; b2, zero up to
-    rounding, within 1e-2 of the largest gradient. The running statistics
+    BatchNorms against jax.grad run op by op (_jax_grads). The loss within
+    1e-5 (measured 0). Per parameter tensor, |g_port - g_jax| / |g_jax|
+    (Frobenius) within 1e-4 (measured median 2.5e-7, largest 4.0e-5: at
+    random weights each gradient is a sum over ~10^4 points of terms that
+    nearly cancel, which multiplies the frameworks' ~1e-7 differences in
+    every activation); b2, zero up to rounding, within 1e-2 of the largest
+    gradient. The running statistics
     are random, so that no pad slot's pe-MLP input sits at exactly 0 (at
     fresh statistics it does, and there ao_tpu's jnp.maximum passes half
     the gradient where torch's relu passes none)."""
@@ -171,7 +173,7 @@ def test_eval_mode_gradients_match_jax(tmp_path):
         if name.endswith("weight_encoding.3.bias"):
             assert max(np.abs(g).max(), np.abs(tg).max()) < 1e-2 * gmax, name
         else:
-            assert np.linalg.norm(tg - g) < 0.05 * np.linalg.norm(g), name
+            assert np.linalg.norm(tg - g) < 1e-4 * np.linalg.norm(g), name
 
 
 def test_multistep_lr_matches_optax_at_every_step():
