@@ -107,11 +107,6 @@ struct Bwd {
       sizeof(int) * R;
 };
 
-__device__ __forceinline__ float xor_sum(float x, int lo, int hi) {
-  for (int o = lo; o <= hi; o <<= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
 // x + a[0] b[0] + ... + a[7] b[7] over eight bf16 pairs, as a chain of
 // FMAs in element order (each product of two bf16 is exact in f32)
 __device__ __forceinline__ float dot8(const uint4 a, const uint4 b, float x) {

@@ -1,11 +1,11 @@
-// Shared tensor-core tile routine of the train-mode GVA kernels (K5
+// Shared tensor-core tile routine of the GVA kernels (K3 gva_eval.cu, K5
 // gva_stats.cu, K6 gva_bwd.cu).
 //
 // A tile is R edges: TQ queries x S = 16 neighbour slots, R = 128 (TQ = 8)
 // at C <= 96 and R = 64 (TQ = 4) at C >= 192, so every row-by-weight
-// product has m >= 64 whatever the width. Per tile the recompute that K5
-// and K6 share (the forward of gva_eval.cu up to the weight encoding's
-// first layer) is
+// product has m >= 64 whatever the width. Per tile the recompute that K3,
+// K5 and K6 share (the attention forward up to the weight encoding's first
+// layer) is
 //   gather   rows of the S neighbours by id, validity v
 //   pos      ((khi + klo) - (qhi + qlo)) * v                  CUDA cores, f32
 //   pe1      relu((bf16(pos) @ bf16(A) + cA) * v)             CUDA cores (K = 3)
@@ -21,7 +21,7 @@
 // at C = 384 Wp2 (288 KB) does not fit and the products stream it through
 // a two-stage ring of 16-row slabs filled by cp.async. bf16 tiles keep a
 // row pitch of C + 8 elements, so the 8 rows of an ldmatrix hit distinct
-// banks. Everything here is inline and in an anonymous namespace: two
+// banks. Everything here is inline and in an anonymous namespace: three
 // translation units of one library include it.
 
 #pragma once
@@ -67,6 +67,11 @@ __device__ __forceinline__ float2 unpack2(uint32_t u) {
 }
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return (uint32_t)__cvta_generic_to_shared(p);
+}
+// x summed over the lanes that differ from this one in the bits lo..hi
+__device__ __forceinline__ float xor_sum(float x, int lo, int hi) {
+  for (int o = lo; o <= hi; o <<= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
 }
 
 // ---------------------------------------------------------------- PTX
@@ -115,6 +120,11 @@ __device__ __forceinline__ void mma16816_split(float (&c)[4], const uint32_t (&a
 }
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)),
+               "l"(src));
+}
+// 4-byte copy, for rows that are only 4-byte aligned (through L1)
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_addr(dst)),
                "l"(src));
 }
 __device__ __forceinline__ void cp_async_commit() {
@@ -230,13 +240,16 @@ __device__ __forceinline__ void tile_mm(FA fa, FB fb, FE fe) {
 }
 
 // An (R x C) x (C x C) product against Wp2 (kNK false: B = Wp2, the
-// recompute's peb, split accumulation) or its transpose (kNK true: B =
-// Wp2^T, the backward's dpe0), one 16 x 8NWC strip per warp. Resident
-// (C <= 192): Wsm holds Wp2 [in][out] at pitch ldc. Streamed (C = 384): Wg
-// is B itself in device memory, K x N row-major (Wp2, or Wp2^T for kNK),
-// copied 16 rows at a time into the two-stage ring while the previous slab
-// is multiplied. Every thread of the block must call it.
-template <class T, bool kNK, class FA, class FE>
+// recompute's peb) or its transpose (kNK true: B = Wp2^T, the backward's
+// dpe0), one 16 x 8NWC strip per warp; kSplit picks the split accumulation
+// (by default for peb: K5 and K6 take it, K3 does not need it). Resident
+// (by default C <= 192): Wsm holds Wp2 [in][out] at pitch ldc. Streamed
+// (kStream; by default C = 384, and K3's C = 192): Wg is B itself in device
+// memory, K x N row-major (Wp2, or Wp2^T for kNK), copied 16 rows at a
+// time into the two-stage ring while the previous slab is multiplied.
+// Every thread of the block must call it.
+template <class T, bool kNK, bool kSplit = !kNK, bool kStream = T::kStream, class FA,
+          class FE>
 __device__ __forceinline__ void mm_wp2(const bf16* Wsm, const bf16* __restrict__ Wg,
                                        bf16* ring, FA fa, FE fe) {
   constexpr int NW = T::NWC, MT = T::R / 16, C = T::C, ld = T::ldc;
@@ -246,7 +259,7 @@ __device__ __forceinline__ void mm_wp2(const bf16* Wsm, const bf16* __restrict__
   float acc[NW][4];
 #pragma unroll
   for (int j = 0; j < NW; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-  if constexpr (!T::kStream) {
+  if constexpr (!kStream) {
 #pragma unroll 2
     for (int k0 = 0; k0 < C; k0 += 16) {
       uint32_t a[4];
@@ -256,7 +269,7 @@ __device__ __forceinline__ void mm_wp2(const bf16* Wsm, const bf16* __restrict__
         uint32_t b[4];
         if constexpr (kNK) frag_b2_nk(b, Wsm, ld, k0, n0 + 8 * j);
         else frag_b2_kn(b, Wsm, ld, k0, n0 + 8 * j);
-        mma_pair<!kNK>(acc, j, a, b);
+        mma_pair<kSplit>(acc, j, a, b);
       }
     }
   } else {
@@ -282,7 +295,7 @@ __device__ __forceinline__ void mm_wp2(const bf16* Wsm, const bf16* __restrict__
       for (int j = 0; j < NW; j += 2) {
         uint32_t b[4];
         frag_b2_kn(b, st, ld, 0, n0 + 8 * j);
-        mma_pair<!kNK>(acc, j, a, b);
+        mma_pair<kSplit>(acc, j, a, b);
       }
     }
     __syncthreads();  // the ring is free again
@@ -365,22 +378,25 @@ __device__ __forceinline__ void pe1_rows(const bf16* __restrict__ A,
   }
 }
 
-// 3: t = (bf16(r) @ bf16(W1x) + b1x) * v into tt (R x G, f32), from the
-// relation rr (R x C bf16) and W1x staged transposed (stage_w1t)
-template <class T>
+// 3: t = (bf16(r) @ bf16(W1x) + b1x) * v into tt (R x G, f32, row pitch
+// ldt), from the relation rr (R x C bf16) and W1x staged transposed
+// (stage_w1t); split accumulation unless kSplit is false; the Gp columns
+// in NS strips, so that NS x R / 16 warps share the product
+template <class T, int ldt = T::G, bool kSplit = true, int NS = 1>
 __device__ __forceinline__ void t_rows(const bf16* rr, const bf16* w1t,
                                        const float* __restrict__ b1,
                                        const float* vld, float* tt) {
   constexpr int G = T::G;
   static_assert(G % 2 == 0, "column pairs stay inside G");
-  tile_mm<T::Gp / 8, T::R / 16, 1, T::C, true>(
+  static_assert(T::Gp / 8 % NS == 0, "whole n8 tiles a strip");
+  tile_mm<T::Gp / 8 / NS, T::R / 16, NS, T::C, kSplit>(
       [&](uint32_t(&a)[4], int m0, int k0) { frag_a(a, rr, T::ldc, m0, k0); },
       [&](uint32_t(&b)[2], int k0, int n0) { frag_b_nk(b, w1t, T::ldc, k0, n0); },
       [&](int m0, int n0, auto& acc) {
         each_pair(acc, m0, n0, [&](int r, int c, float x0, float x1) {
           if (c < G) {
-            tt[r * G + c] = (x0 + b1[c]) * vld[r];
-            tt[r * G + c + 1] = (x1 + b1[c + 1]) * vld[r];
+            tt[r * ldt + c] = (x0 + b1[c]) * vld[r];
+            tt[r * ldt + c + 1] = (x1 + b1[c + 1]) * vld[r];
           }
         });
       });

@@ -1,8 +1,10 @@
 """Build and bind the port's CUDA kernels.
 
-All ``csrc/*.cu`` sources compile in ONE ``nvcc`` call into one shared
-library with a plain C interface, loaded through ``ctypes``. No PyTorch
-headers are compiled, so the build takes seconds. The library goes to
+Every ``csrc/*.cu`` source compiles to an object in its own ``nvcc``
+process, all started together, and one more call links the objects into
+one shared library with a plain C interface, loaded through ``ctypes``. No
+PyTorch headers are compiled, so the build takes seconds to tens of
+seconds, as long as the slowest source. The library goes to
 ``ao_tpu_torch/_build/<hash of the sources>/`` at first use and is reused
 while the sources are unchanged.
 
@@ -28,7 +30,7 @@ SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
 )
 
 _P = ctypes.c_void_p
@@ -42,8 +44,8 @@ _SIGNATURES = {
     # d2, idx, d2_out, idx_out, rows, width, k, stream
     "merge_topk_launch": [_P] * 4 + [_L, _I, _I, _P],
     # src, qrow, idx, valid, A, cA, Wp2, bp2, W1f, b1f, W2, b2, out,
-    # B, Nsrc, Nq, S, C, G, stream
-    "gva_eval_launch": [_P] * 13 + [_I] * 6 + [_P],
+    # B, Nsrc, Nq, S, C, G, nblk, stream
+    "gva_eval_launch": [_P] * 13 + [_I] * 7 + [_P],
     # src, qrow, idx, valid, part, B, Nsrc, Nq, S, C, nblk, stream
     "gva_pos_launch": [_P] * 5 + [_I] * 6 + [_P],
     # src, qrow, idx, valid, A, cA, Wp2, bp2, W1, b1, part,
@@ -57,12 +59,13 @@ _SIGNATURES = {
     "gva_bwd_scratch_width": [_I],
     "gva_bwd_sums_tiles": [_I],
     # C, &blocks: blocks of the persistent kernel one SM holds
+    "gva_eval_blocks_per_sm": [_I, ctypes.POINTER(_I)],
     "gva_stats_blocks_per_sm": [_I, ctypes.POINTER(_I)],
     "gva_bwd_blocks_per_sm": [_I, ctypes.POINTER(_I)],
 }
 
 _lib = None
-build_seconds = None  # wall time of the nvcc call of this process, if any
+build_seconds = None  # wall time of this process' build, if it built one
 
 
 def _nvcc() -> str:
@@ -78,6 +81,18 @@ def _nvcc() -> str:
         "nvcc not found (set CUDA_HOME): the CUDA kernels of ao_tpu_torch "
         "are built from csrc/ at first use"
     )
+
+
+def _start(cmd):
+    return cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                 stderr=subprocess.PIPE, text=True)
+
+
+def _finish(cmd, proc):
+    _, err = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{err}")
 
 
 def sources():
@@ -98,16 +113,26 @@ def lib() -> ctypes.CDLL:
     so = out_dir / "libao_kernels.so"
     if not so.is_file():
         out_dir.mkdir(parents=True, exist_ok=True)
-        tmp = out_dir / f"libao_kernels.{os.getpid()}.so"
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, srcs)]
         t0 = time.perf_counter()
-        res = subprocess.run(cmd, capture_output=True, text=True)
+        nvcc, pid = _nvcc(), os.getpid()
+        objs = [out_dir / f"{p.stem}.{pid}.o" for p in srcs]
+        procs = [_start([nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(p)])
+                 for p, o in zip(srcs, objs)]
+        try:
+            for proc in procs:
+                _finish(*proc)
+        finally:  # after a failed source, stop the others' builds
+            for _, proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        tmp = out_dir / f"libao_kernels.{pid}.so"
+        _finish(*_start([nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
+                         *map(str, objs)]))
         build_seconds = time.perf_counter() - t0
-        if res.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({res.returncode}): {' '.join(cmd)}\n{res.stderr}"
-            )
         os.replace(tmp, so)
+        for o in objs:
+            o.unlink()
     cdll = ctypes.CDLL(str(so))
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(cdll, name)

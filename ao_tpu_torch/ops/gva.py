@@ -15,9 +15,9 @@ slab-mode AND gathered-mode kernel of the same function:
   backward, with the moments the BN-statistics' gradient is linear in
   (``_bwd_kernel``, and ``_bwd_stats_kernel`` of the gathered family).
 
-K5 and K6 share the tensor-core tile routine of ``gva_tile.cuh`` and are
-built for the (C, G) instances of the S3DIS config (C = 48, 96, 192, 384,
-G = C / 8, S = 16).
+K3, K5 and K6 share the tensor-core tile routine of ``gva_tile.cuh`` and
+are built for the (C, G) instances of the S3DIS config (C = 48, 96, 192,
+384, G = C / 8, S = 16); their wrappers raise on any other width.
 
 The kernels gather neighbour rows themselves, so one kernel serves both
 call modes: the caller passes sorted or unsorted source rows with the
@@ -170,38 +170,35 @@ def gva_eval_plain(src, qrow, idx, valid, fp):
 
 
 def gva_eval(src, qrow, idx, valid, fp):
-    """K3 (replaces gva_slab.py:gva_slab_core_eval and
-    gva_fused.py:gva_core_eval).
+    """K3 (replaces gva_slab.py:gva_slab_core_eval / gva_slab_core and
+    gva_fused.py:gva_core_eval / gva_core).
 
     src (B, Nsrc, 2C+6) bf16 rows, qrow (B, Nq, C+7) bf16, idx (B, Nq, S)
     ids into src, valid (B, Nq, S) bool, fp the folded parameters of
-    :func:`folded_params`. Returns out (B, Nq, C) f32."""
+    :func:`folded_params` (or the batch-statistic folds of
+    :class:`GVATrain`). Returns out (B, Nq, C) f32. The kernel is built for
+    the widths of :data:`GVA_WIDTHS` with G = C / 8 and S = 16; any other
+    shape raises."""
     if src.device.type == "cpu":
         return gva_eval_plain(src, qrow, idx, valid, fp)
-    B, Nsrc, rw = src.shape
+    args = _check_rows("gva_eval", src, qrow, idx, valid)
+    B, Nsrc, _ = src.shape
     Nq, S = idx.shape[1:]
     C = qrow.shape[-1] - 7
     G = fp["W2"].shape[0]
-    if (rw != 2 * C + 6 or S != 16 or C % 4 or C % G
-            or src.dtype != torch.bfloat16 or qrow.dtype != torch.bfloat16):
-        raise ValueError(
-            f"gva_eval: rows {tuple(src.shape)} {src.dtype}, qrow "
-            f"{tuple(qrow.shape)}, S={S}, G={G} outside the kernel's contract"
-        )
+    _check_width("gva_eval", C, G)
     bf = torch.bfloat16
-    args = [
-        src.contiguous(), qrow.contiguous(),
-        idx.to(torch.int32).contiguous(), valid.to(torch.uint8).contiguous(),
-        fp["A"].to(bf).contiguous(), fp["cA"].float().contiguous(),
-        fp["Wp2"].to(bf).contiguous(), fp["bp2"].float().contiguous(),
-        fp["W1f"].to(bf).contiguous(), fp["b1f"].float().contiguous(),
-        fp["W2"].float().contiguous(), fp["b2"].float().contiguous(),
-    ]
+    args += [fp["A"].to(bf).contiguous(), fp["cA"].float().contiguous(),
+             fp["Wp2"].to(bf).contiguous(), fp["bp2"].float().contiguous(),
+             fp["W1f"].to(bf).contiguous(), fp["b1f"].float().contiguous(),
+             fp["W2"].float().contiguous(), fp["b2"].float().contiguous()]
     _native.require_cuda("gva_eval", *args)
     out = torch.empty((B, Nq, C), dtype=torch.float32, device=src.device)
+    # a persistent grid: as many blocks as the SMs hold at once
+    nblk = _grid("gva_eval", src.device, C, B * -(-Nq // _tile_queries(C)))
     err = _native.lib().gva_eval_launch(
         *[a.data_ptr() for a in args], out.data_ptr(), B, Nsrc, Nq, S, C, G,
-        _native.stream_ptr(out),
+        nblk, _native.stream_ptr(out),
     )
     _native.check(err, "gva_eval")
     gva_eval.launches += 1
@@ -218,6 +215,16 @@ gva_eval.launches = 0
 
 def _sm_count(device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+# the widths K3, K5 and K6 are built for (every stage of the S3DIS config)
+GVA_WIDTHS = (48, 96, 192, 384)
+
+
+def _check_width(name, C, G):
+    if C not in GVA_WIDTHS or G * 8 != C:
+        raise ValueError(f"{name}: C={C}, G={G} outside the kernel's instances "
+                         f"(C in {GVA_WIDTHS}, G = C / 8)")
 
 
 def _check_rows(name, src, qrow, idx, valid):
@@ -295,6 +302,7 @@ def gva_stats(src, qrow, idx, valid, A, cA, Wp2, bp2, W1, b1):
     args = _check_rows("gva_stats", src, qrow, idx, valid)
     G = W1.shape[1]
     C = qrow.shape[-1] - 7
+    _check_width("gva_stats", C, G)
     bf = torch.bfloat16
     args += [A.to(bf).contiguous(), cA.float().contiguous(),
              Wp2.to(bf).contiguous(), bp2.float().contiguous(),
@@ -321,7 +329,7 @@ gva_stats.launches = 0
 
 
 def _tile_queries(C):
-    """Queries per tile of K5 and K6 (csrc/gva_tile.cuh: Tile<C>::TQ)."""
+    """Queries per tile of K3, K5 and K6 (csrc/gva_tile.cuh: Tile<C>::TQ)."""
     return 8 if C <= 96 else 4
 
 
@@ -350,8 +358,8 @@ def _workspace(device, numel):
 
 
 def _grid(name, device, C, tiles):
-    """Blocks of the persistent K5 / K6 grid: as many as the SMs hold at
-    once (the kernel's own occupancy query), at most one per tile."""
+    """Blocks of the persistent K3 / K5 / K6 grid: as many as the SMs hold
+    at once (the kernel's own occupancy query), at most one per tile."""
     key = (name, C, device)
     if key not in _OCCUPANCY:
         n = ctypes.c_int(0)
@@ -447,6 +455,7 @@ def gva_bwd(src, qrow, idx, valid, fp, dout):
     Nq, S = idx.shape[1:]
     C = qrow.shape[-1] - 7
     G = fp["W2"].shape[0]
+    _check_width("gva_bwd", C, G)
     bf = torch.bfloat16
     Wp2 = fp["Wp2"].to(bf).contiguous()
     # the kernel stages Wp2 in shared memory and reads it both ways; at

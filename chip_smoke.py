@@ -7,7 +7,8 @@ under data/ or exp/: the scenes are synthetic and the weights are random.
 PT-v2m2 runs at the full width of configs/s3dis/semseg-pt-v2m2-0-base.py.
 
 1. Prints the card (nvidia-smi name and power limit), the torch and CUDA
-   versions, and builds the kernels (one nvcc call over csrc/*.cu).
+   versions, and builds the kernels (one nvcc process per csrc/*.cu
+   source, all started together, then one link).
 2. Kernel phase (test slice): runs the slice phase's own largest batch
    (8 distinct fragments of a synthetic room, padded as the tester pads
    them) and a small batch of two room pieces padded to 16384, whose deep
@@ -930,7 +931,7 @@ def main():
           f"{sys.version.split()[0]}", flush=True)
     _native.lib()
     built = _native.build_seconds
-    log(t0, f"kernels built: one nvcc call, {built:.1f} s" if built is not None
+    log(t0, f"kernels built: parallel nvcc, {built:.1f} s" if built is not None
         else f"kernels reused from {_native.BUILD_DIR}")
 
     kernels = run(torch.device("cuda"), args.seed, t0, card=card)

@@ -145,8 +145,11 @@ def _jax_params(c):
             (p["pe_mean"], p["pe_var"]), (p["we_mean"], p["we_var"]))
 
 
-def _port_out(c):
+def _port_out(c, nq=None):
+    """The port's K3 on the case's rows; with ``nq``, on its first nq
+    queries only."""
     bf = torch.bfloat16
+    nq = c["Np"] if nq is None else nq
     c6 = tgva.pack_coords(torch.from_numpy(c["coord"]))
     src = torch.cat([torch.from_numpy(c["k"]).to(bf),
                      torch.from_numpy(c["v"]).to(bf), c6], -1)
@@ -154,8 +157,8 @@ def _port_out(c):
                       tgva.pack_coords(torch.from_numpy(c["qcoord"])),
                       torch.from_numpy(c["qmask"])[..., None].to(bf)], -1)
     fp = tgva.folded_params({n: torch.from_numpy(a) for n, a in c["p"].items()})
-    out = tgva.gva_eval(src, qrow, torch.from_numpy(c["idx"]),
-                        torch.from_numpy(c["valid"]), fp)
+    out = tgva.gva_eval(src, qrow[:, :nq], torch.from_numpy(c["idx"][:, :nq]),
+                        torch.from_numpy(c["valid"][:, :nq]), fp)
     assert tgva.gva_eval.launches == 0
     return out.numpy()
 
@@ -165,13 +168,18 @@ def _assert_close(got, ref):
     assert float(np.abs(got - ref).max()) < 5e-3 * scale
 
 
-@pytest.mark.parametrize("C,G,N", [(48, 6, 300), (96, 12, 300), (192, 24, 160)])
-def test_gva_eval_plain_matches_slab_kernel(C, G, N):
-    """K3a: sorted-slab call mode against gva_slab_core_eval, at the slab
-    tilings of the S3DIS stages (C=192 at a narrowed N)."""
+def _slab_tiling(C):
+    """(TQ, J) of the slab kernel at width C (the S3DIS stages' tiling)."""
     TQ = 128 if C <= 96 else 64
-    J = 2 * (256 // TQ) + 1
-    c = _gva_case(C, G, N, TQ, J, seed=C)
+    return TQ, 2 * (256 // TQ) + 1
+
+
+def _gathered_tq(C):
+    return 128 if C <= 48 else (64 if C <= 96 else 32)
+
+
+def _slab_ref(c, C, G, N, TQ, J):
+    """gva_slab_core_eval (Pallas, interpret mode) on the case's rows."""
     bf = jnp.bfloat16
     c6, qrow = _jax_rows(c)
     lay = gs.lane_layout(C)
@@ -185,19 +193,15 @@ def test_gva_eval_plain_matches_slab_kernel(C, G, N):
     src = jnp.concatenate([x for x in parts if x.shape[-1]], axis=-1)
     kv_pad = gs.pad_for_slab(src, N, TQ, J)
     (Wp1, bp1, gp, bp, Wp2, bp2, wp), rp, rw = _jax_params(c)
-    ref = gs.gva_slab_core_eval(
+    return np.asarray(gs.gva_slab_core_eval(
         kv_pad, jnp.asarray(c["idx"] + c["W"], jnp.int32), qrow,
         jnp.asarray(c["valid"]).astype(bf), Wp1, bp1, gp, bp, Wp2, bp2, wp,
         rp, rw, c["Np"], 16, C, G, TQ, J, interpret=True,
-    )
-    _assert_close(_port_out(c), np.asarray(ref))
+    ))
 
 
-@pytest.mark.parametrize("C,G,N", [(48, 6, 256), (96, 12, 192), (192, 24, 96)])
-def test_gva_eval_plain_matches_gathered_kernel(C, G, N):
-    """K3b: gathered-rows call mode against gva_core_eval."""
-    TQ = 128 if C <= 48 else (64 if C <= 96 else 32)
-    c = _gva_case(C, G, N, TQ, J=3, seed=C + 1)
+def _gathered_ref(c, C, G, TQ):
+    """gva_core_eval (Pallas, interpret mode) on the case's gathered rows."""
     bf = jnp.bfloat16
     c6, qrow = _jax_rows(c)
     src = jnp.concatenate([jnp.asarray(c["k"]).astype(bf),
@@ -206,8 +210,69 @@ def test_gva_eval_plain_matches_gathered_kernel(C, G, N):
     kvp = jnp.take_along_axis(
         src, jnp.asarray(c["idx"].reshape(B, Np * S))[..., None], axis=1)
     (Wp1, bp1, gp, bp, Wp2, bp2, wp), rp, rw = _jax_params(c)
-    ref = gf.gva_core_eval(
+    return np.asarray(gf.gva_core_eval(
         kvp, qrow, jnp.asarray(c["valid"]).astype(bf), Wp1, bp1, gp, bp, Wp2,
         bp2, wp, rp, rw, S, C, G, TQ, interpret=True,
-    )
-    _assert_close(_port_out(c), np.asarray(ref))
+    ))
+
+
+@pytest.mark.parametrize(
+    "C,G,N", [(48, 6, 300), (96, 12, 300), (192, 24, 160), (384, 48, 96)])
+def test_gva_eval_plain_matches_slab_kernel(C, G, N):
+    """K3a: sorted-slab call mode against gva_slab_core_eval, at the slab
+    tilings of the S3DIS stages (C=192 and 384 at a narrowed N)."""
+    TQ, J = _slab_tiling(C)
+    c = _gva_case(C, G, N, TQ, J, seed=C)
+    _assert_close(_port_out(c), _slab_ref(c, C, G, N, TQ, J))
+
+
+@pytest.mark.parametrize(
+    "C,G,N", [(48, 6, 256), (96, 12, 192), (192, 24, 96), (384, 48, 64)])
+def test_gva_eval_plain_matches_gathered_kernel(C, G, N):
+    """K3b: gathered-rows call mode against gva_core_eval (C=384: the small
+    batch's gathered deepest stage)."""
+    TQ = _gathered_tq(C)
+    c = _gva_case(C, G, N, TQ, J=3, seed=C + 1)
+    _assert_close(_port_out(c), _gathered_ref(c, C, G, TQ))
+
+
+@pytest.mark.parametrize("mode", ["slab", "gathered"])
+def test_gva_eval_plain_ragged_queries_and_empty_slots(mode):
+    """The port on Nq = 299 queries (not a multiple of the card kernel's 8
+    or 4 queries per tile, so its last tile is ragged), one of them (row 5,
+    a valid query) with every slot invalid, against the TPU kernel on the
+    same rows padded to its tiling: the first 299 rows agree in the 5e-3
+    band, and the empty query's output is 0 (its softmax has no slot)."""
+    C, G, N, nq = 96, 12, 300, 299
+    if mode == "slab":
+        TQ, J = _slab_tiling(C)
+    else:
+        TQ, J = _gathered_tq(C), 3
+    c = _gva_case(C, G, N, TQ, J, seed=7)
+    c["valid"][:, 5] = False
+    assert c["qmask"][:, 5].all()
+    ref = (_slab_ref(c, C, G, N, TQ, J) if mode == "slab"
+           else _gathered_ref(c, C, G, TQ))
+    got = _port_out(c, nq)
+    assert got.shape == (1, nq, C)
+    _assert_close(got, ref[:, :nq])
+    assert np.all(got[:, 5] == 0.0)
+    assert np.all(np.abs(ref[:, 5]) < 1e-6)
+
+
+@pytest.mark.parametrize("C,G", [(64, 8), (48, 12), (768, 96)])
+def test_gva_eval_raises_outside_its_instances(C, G):
+    """Off the CPU the K3 wrapper takes only the kernel's instances
+    (C in 48, 96, 192, 384 with G = C / 8): other widths raise before any
+    device work, never falling back to the plain version. Tensors on the
+    meta device stand for the card's here."""
+    B, N, S = 1, 32, 16
+    meta = torch.device("meta")
+    src = torch.empty((B, N, 2 * C + 6), dtype=torch.bfloat16, device=meta)
+    qrow = torch.empty((B, N, C + 7), dtype=torch.bfloat16, device=meta)
+    idx = torch.empty((B, N, S), dtype=torch.int32, device=meta)
+    valid = torch.empty((B, N, S), dtype=torch.bool, device=meta)
+    fp = dict(A=torch.empty((3, C), device=meta), W2=torch.empty((G, G), device=meta))
+    with pytest.raises(ValueError, match="instances"):
+        tgva.gva_eval(src, qrow, idx, valid, fp)
+    assert tgva.gva_eval.launches == 0
