@@ -46,8 +46,8 @@ _SIGNATURES = {
     # src, qrow, idx, valid, A, cA, Wp2, bp2, W1f, b1f, W2, b2, out,
     # B, Nsrc, Nq, S, C, G, nblk, stream
     "gva_eval_launch": [_P] * 13 + [_I] * 7 + [_P],
-    # src, qrow, idx, valid, part, B, Nsrc, Nq, S, C, nblk, stream
-    "gva_pos_launch": [_P] * 5 + [_I] * 6 + [_P],
+    # src, qrow, idx, valid, out, part, done, B, Nsrc, Nq, S, C, nblk, stream
+    "gva_pos_launch": [_P] * 7 + [_I] * 6 + [_P],
     # src, qrow, idx, valid, A, cA, Wp2, bp2, W1, b1, part,
     # B, Nsrc, Nq, S, C, G, nblk, stream
     "gva_stats_launch": [_P] * 11 + [_I] * 7 + [_P],
@@ -58,7 +58,8 @@ _SIGNATURES = {
     # C: K6's per-edge scratch width (0: none), its sums pass' output tiles
     "gva_bwd_scratch_width": [_I],
     "gva_bwd_sums_tiles": [_I],
-    # C, &blocks: blocks of the persistent kernel one SM holds
+    # C, &blocks: blocks of the kernel one SM holds (K4: the same at any C)
+    "gva_pos_blocks_per_sm": [_I, ctypes.POINTER(_I)],
     "gva_eval_blocks_per_sm": [_I, ctypes.POINTER(_I)],
     "gva_stats_blocks_per_sm": [_I, ctypes.POINTER(_I)],
     "gva_bwd_blocks_per_sm": [_I, ctypes.POINTER(_I)],

@@ -238,7 +238,9 @@ def _check_rows(name, src, qrow, idx, valid):
             f"{tuple(qrow.shape)}, idx {tuple(idx.shape)} outside the "
             f"kernel's contract")
     return [src.contiguous(), qrow.contiguous(),
-            idx.to(torch.int32).contiguous(), valid.to(torch.uint8).contiguous()]
+            idx.to(torch.int32).contiguous(),
+            (valid.view(torch.uint8) if valid.dtype == torch.bool
+             else valid.to(torch.uint8)).contiguous()]
 
 
 def gva_pos_plain(src, qrow, idx, valid):
@@ -268,15 +270,22 @@ def gva_pos(src, qrow, idx, valid):
     B, Nsrc, _ = src.shape
     Nq, S = idx.shape[1:]
     C = qrow.shape[-1] - 7
-    nblk = max(1, min(-(-B * Nq * S // 256), 4 * _sm_count(src.device)))
-    part = torch.empty((nblk, 13), dtype=torch.float32, device=src.device)
+    # the kernel reads 4 ids as one int4 and 4 validity bytes as one word
+    if args[2].data_ptr() % 16:
+        args[2] = args[2].clone()
+    if args[3].data_ptr() % 4:
+        args[3] = args[3].clone()
+    dev = src.device
+    nblk = _grid("gva_pos", dev, C, -(-B * Nq * S // 1024))
+    # [13 totals | the kernel's block counter | 2 unused | nblk partial rows]
+    buf = torch.empty(16 + 13 * nblk, dtype=torch.float32, device=dev)
+    ptr = buf.data_ptr()
     err = _native.lib().gva_pos_launch(
-        *[a.data_ptr() for a in args], part.data_ptr(), B, Nsrc, Nq, S, C,
-        nblk, _native.stream_ptr(part))
+        *[a.data_ptr() for a in args], ptr, ptr + 16 * 4, ptr + 13 * 4, B,
+        Nsrc, Nq, S, C, nblk, _native.stream_ptr(buf))
     _native.check(err, "gva_pos")
     gva_pos.launches += 1
-    tot = part.sum(0, dtype=torch.float64).float()
-    return tot[:3], tot[3:12].reshape(3, 3), tot[12]
+    return buf[:3], buf[3:12].view(3, 3), buf[12]
 
 
 gva_pos.launches = 0

@@ -14,9 +14,10 @@ PT-v2m2 runs at the full width of configs/s3dis/semseg-pt-v2m2-0-base.py.
    them) and a small batch of two room pieces padded to 16384, whose deep
    stages fall below the 2048-point slab gate. The inputs of every kernel
    call with a new shape are captured; each kernel is then held against
-   its plain PyTorch version on them and timed (CUDA events, after
-   warm-up) beside the plain version, a library call where one computes
-   the same function, and its bound.
+   its plain PyTorch version on them and timed (the wrapper by CUDA
+   events, after warm-up; the kernel's own device time by torch.profiler)
+   beside the plain version, a library call where one computes the same
+   function, and its bound.
 3. Slice phase: whole-scene testing of the room through the port's entry
    point (ao_tpu_torch.tools.test) with the config's 10 TTA views; every
    point must receive finite votes from every view. Then the largest
@@ -24,9 +25,10 @@ PT-v2m2 runs at the full width of configs/s3dis/semseg-pt-v2m2-0-base.py.
 4. Train kernel phase: one train step of the train phase's batch (three
    synthetic rooms of about 80k voxels each, B=3 x 81920, every stage on
    the slab path) and one of the small batch (deep stages gathered), with
-   the train path's GVA kernels captured (K3 with batch-statistic folds,
-   K4 position moments, K5 weight-BN statistics, K6 backward); each held
-   against its plain version and timed as in 2.
+   all six kernels of the train path captured (K1 and K2 at the train
+   batch's own graphs, K3 with batch-statistic folds, K4 position
+   moments, K5 weight-BN statistics, K6 backward); each held against its
+   plain version and timed as in 2.
 5. Train phase: a few steps of the base config's Trainer through the
    port's entry point (ao_tpu_torch.tools.train) on the three rooms; every
    loss and gradient norm must be finite and the parameters must move.
@@ -459,7 +461,12 @@ def plain_versions():
 
 def hold_captured(cap, phase):
     """Hold each kernel against its plain version on every captured
-    (kernel, shape) and time both; raise if one disagrees."""
+    (kernel, shape) and time both; raise if one disagrees. ``ms`` is the
+    wrapper's time per call (CUDA events around back-to-back calls, host
+    work included), ``device_ms`` the kernel's own device time per launch
+    (torch.profiler)."""
+    from ao_tpu_torch.utils.devtime import device_ms
+
     plain = plain_versions()
     rows, failures = [], []
     for key, (name, fn, args) in cap.calls.items():
@@ -470,13 +477,15 @@ def hold_captured(cap, phase):
             ok, err, bound_ms, by, lib_ms, note = CHECKS[name](args, out_k, out_p)
             del out_k, out_p
             ms = cuda_ms(lambda: fn(*args))
+            dev_ms = device_ms(lambda: fn(*args), name, reps=5, warmup=0)
             plain_ms = cuda_ms(lambda: plain[name](*args), reps=3, warmup=1)
         row = dict(name=name, phase=phase, shape=describe(name, args), ok=ok,
-                   max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                   max_abs_err=err, ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
                    bound_ms=bound_ms, bound_by=by, library_ms=lib_ms, note=note)
         rows.append(row)
         print(f"  {name:10s} {row['shape']:46s} ok={ok} err={err:.3g} "
-              f"ms={ms:.4f} plain_ms={plain_ms:.3f} bound_ms={bound_ms:.4f} "
+              f"ms={ms:.4f} device_ms={dev_ms:.4f} plain_ms={plain_ms:.3f} "
+              f"bound_ms={bound_ms:.4f} "
               f"({by}) library_ms={lib_ms} {note}", flush=True)
         if not ok:
             failures.append(f"{name} {row['shape']}")
@@ -527,12 +536,16 @@ def kernel_phase(model, batches, t0, device):
 
 
 def train_kernel_phase(trainer, batches, t0):
-    """One train step on each (label, batch) with the GVA kernel wrappers of
-    the train path captured (K3 with batch-statistic folds, K4, K5, K6),
-    then each held against its plain version and timed."""
+    """One train step on each (label, batch) with every kernel wrapper of the
+    train path captured (K1 and K2 at the train batch's own graphs, K3 with
+    batch-statistic folds, K4, K5, K6), then each held against its plain
+    version and timed."""
     from ao_tpu_torch.ops import gva as gva_mod
+    from ao_tpu_torch.ops import knn_spatial as ks
 
     cap = Capture()
+    cap.wrap(ks, "knn_window", "knn_window")
+    cap.wrap(ks, "merge_topk", "merge_topk")
     for name in ("gva_pos", "gva_stats", "gva_eval", "gva_bwd"):
         cap.wrap(gva_mod, name, name)
     try:
@@ -546,7 +559,7 @@ def train_kernel_phase(trainer, batches, t0):
     finally:
         cap.restore()
     rows = hold_captured(cap, "train")
-    _require(rows, ("gva_pos", "gva_stats", "gva_eval", "gva_bwd"), "train path")
+    _require(rows, TRAIN_KERNELS, "train path")
     return rows
 
 
@@ -903,7 +916,7 @@ def run(device, seed, t0, room_size=(4.8, 4.0, 2.6), train_steps=5, card="",
             launches_by_path=by_path,
             launches_per_train_step=train_launches[name] / train_steps,
             max_abs_err=row["max_abs_err"], ms=row["ms"],
-            plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
+            device_ms=row["device_ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
             bound_by=row["bound_by"], library_ms=row["library_ms"],
             shape=f"{row['phase']}: {row['shape']}"))
     return kernels

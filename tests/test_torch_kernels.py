@@ -56,6 +56,77 @@ def test_knn_window_plain_matches_pallas(tile_q, window, k):
     assert tks.knn_window.launches == 0  # CPU tensors: the plain version
 
 
+def _lattice_case(kind, tile_q, window, k, seed):
+    """K1 inputs on a 0.25 lattice (every score exact in f32 in both
+    frameworks, so ties between valid keys are exact): ``ties`` with 5% of
+    the keys invalid; ``few_valid`` with 99% invalid, so windows hold fewer
+    than k valid keys; ``all_invalid`` with the second tile's window made
+    wholly invalid and its queries zero (a tile of pad queries)."""
+    rng = np.random.default_rng(seed)
+    B, T = 2, 2
+    Nk, Nqp = window + 384, T * tile_q
+    keys = (rng.integers(0, 12, (B, Nk, 3)) * 0.25).astype(np.float32)
+    pen = rng.random((B, Nk)) < {"ties": 0.05, "few_valid": 0.99,
+                                 "all_invalid": 0.05}[kind]
+    queries = (rng.integers(0, 12, (B, Nqp, 3)) * 0.25).astype(np.float32)
+    ws = (rng.integers(0, (Nk - window) // 128 + 1, (B, T)) * 128).astype(np.int32)
+    if kind == "all_invalid":
+        ws[:, 1] = Nk - window
+        pen[:, Nk - window:] = True
+        ws[:, 0] = 0
+        pen[:, :Nk - window] = False
+        queries[:, tile_q:] = 0.0
+    k2 = ((keys ** 2).sum(-1) + np.where(pen, _BIG, 0.0)).astype(np.float32)
+    order = np.stack([rng.permutation(Nk) for _ in range(B)]).astype(np.int32)
+    return keys, k2, order, queries, ws, pen
+
+
+@pytest.mark.parametrize("kind", ["ties", "few_valid", "all_invalid"])
+@pytest.mark.parametrize(
+    "tile_q,window,k", [(128, 640, 16), (64, 512, 16), (512, 640, 3)])
+def test_knn_window_plain_matches_pallas_ties_and_invalid_keys(
+        kind, tile_q, window, k):
+    """The semantics K1 keeps on the card: bit-identical scores against the
+    TPU kernel; identical ids at every slot of a valid key, exact ties
+    included (both take the lowest window column); at the slots past a
+    window's valid keys (score 1e30) the port emits the window's invalid
+    keys in column order, each once. (The TPU kernel masks a taken column
+    to the same 1e30 and repeats the window's first column there; both
+    graphs drop those slots in ``_finalize``.)"""
+    keys, k2, order, queries, ws, pen = _lattice_case(
+        kind, tile_q, window, k, seed=tile_q + window + k)
+    jd2, jidx = knn_window_pallas(
+        jnp.asarray(keys), jnp.asarray(k2), jnp.asarray(order),
+        jnp.asarray(queries), jnp.asarray(ws), k, tile_q, window,
+        interpret=True,
+    )
+    td2, tidx = tks.knn_window(
+        *(torch.from_numpy(a) for a in (keys, k2, order, queries, ws)),
+        k, tile_q, window,
+    )
+    assert tks.knn_window.launches == 0
+    jd2, jidx, td2, tidx = (np.asarray(jd2), np.asarray(jidx), td2.numpy(),
+                            tidx.numpy())
+    np.testing.assert_array_equal(td2.view(np.int32), jd2.view(np.int32))
+    live = td2 < _BIG / 2
+    np.testing.assert_array_equal(tidx[live], jidx[live])
+    B, Nqp = queries.shape[:2]
+    n_dead = 0
+    for b in range(B):
+        for t in range(Nqp // tile_q):
+            cols = np.arange(ws[b, t], ws[b, t] + window)
+            inv = order[b, cols[pen[b, cols]]]
+            for qi in range(t * tile_q, (t + 1) * tile_q):
+                dead = ~live[b, qi]
+                n_dead += int(dead.sum())
+                np.testing.assert_array_equal(tidx[b, qi, dead],
+                                              inv[:int(dead.sum())])
+    if kind != "ties":
+        assert n_dead > 0
+    if kind == "all_invalid":
+        assert not live[:, tile_q:].any()
+
+
 # ---------------------------------------------------------------- K2
 
 

@@ -147,6 +147,32 @@ def test_pos_moments_plain_matches_pallas(case, mode):
     assert float(tm[2]) == float(jm[2]) == float(case["valid"].sum())
 
 
+@pytest.mark.parametrize("edges", ["empty_query", "mostly_invalid"])
+@pytest.mark.parametrize("mode", ["slab", "gathered"])
+def test_pos_moments_plain_matches_pallas_sparse_edges(case, mode, edges):
+    """K4 where edges are scarce, as the card kernel's grouping of four
+    slots a thread meets them: a valid query row whose every slot is
+    invalid (``empty_query``, row 5, beside the case's 10% invalid slots),
+    or a stage whose edges are 95% invalid (``mostly_invalid``). The same
+    band as above; the count exact."""
+    c = dict(case)
+    valid = case["valid"].copy()
+    if edges == "empty_query":
+        valid[:, 5] = False
+        assert case["mask"][:, 5].any()
+    else:
+        valid &= np.random.default_rng(11).random(valid.shape) < 0.05
+    c["valid"] = valid
+    jm = jax_pos_moments(c, mode)
+    src, qrow, idx, valid_t = port_rows(
+        c, *(torch.from_numpy(c[x]) for x in "kvq"))
+    tm = tg.gva_pos(src, qrow, idx, valid_t)
+    assert tg.gva_pos.launches == 0
+    _close(tm[0], jm[0], 1e-5)
+    _close(tm[1], jm[1], 1e-5)
+    assert float(tm[2]) == float(jm[2]) == float(valid.sum())
+
+
 @pytest.mark.parametrize("mode", ["slab", "gathered"])
 def test_forward_and_stats_match_pallas(case, mode):
     """K5 and K3 with batch-statistic folds inside GVATrain: the output
