@@ -1,10 +1,19 @@
-"""S3DIS dataset (port of ao_tpu/datasets/s3dis.py, standard mode).
+"""S3DIS dataset with AO's weak-label modes (port of
+ao_tpu/datasets/s3dis.py; reference: pointcept/datasets/s3dis.py:23-245).
 
-Reads the preprocessed per-room dicts. AO's weak-label modes (on-disk
-pseudo-labels for PP2S and REAL) belong to the training slice.
+Standard mode reads the preprocessed per-room dicts. Weak modes
+(``weak=True`` with ``mode`` 'pp2s' or 'real') replace ``segment`` with the
+on-disk pseudo-labels ``<weak_path>/<area>/<room>.npy`` and set
+``instance`` to each point's original row, so that sampled points map back
+to full-scene rows for REAL's logit basket. The labels are read again on
+every ``__getitem__``, so labels that REAL's refinement rewrites take
+effect in the next epoch. ``cache`` is accepted for the configs' sake and,
+as in the JAX package, unused.
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 
@@ -21,8 +30,15 @@ class S3DISDataset(DefaultDataset):
         transform=None,
         test_mode=False,
         test_cfg=None,
+        cache=False,
         loop=1,
+        weak=False,
+        weak_path=None,
+        mode="pp2s",
     ):
+        self.weak = weak
+        self.weak_path = weak_path
+        self.mode = mode
         super().__init__(
             split=split,
             data_root=data_root,
@@ -51,6 +67,12 @@ class S3DISDataset(DefaultDataset):
             ),
             scene_id=data_path,
         )
+        if self.weak and self.mode in ("pp2s", "real"):
+            area = os.path.basename(os.path.dirname(data_path))
+            room = os.path.splitext(os.path.basename(data_path))[0]
+            label_path = os.path.join(self.weak_path, area, room + ".npy")
+            out["segment"] = np.load(label_path).reshape(-1).astype(np.int64)
+            out["instance"] = np.arange(n, dtype=np.int64)
         if "normal" in data:
             out["normal"] = np.asarray(data["normal"], np.float32)
         return out

@@ -1,3 +1,4 @@
 from .test import TEST, SemSegTester, load_weights
-from .train import Trainer
+from .train import Trainer, TrainerBase
+from .hooks import HOOKS, HookBase, build_hooks
 from .defaults import default_argument_parser, default_config_parser

@@ -19,19 +19,22 @@ import torch
 
 from ..datasets import build_dataset, collate_fn
 from ..models import build_model
-from ..models.point_transformer_v2.convert import load_jax_npz
+from ..models.point_transformer_v2.convert import load_jax_ckpt, load_jax_npz
 from ..utils import AverageMeter, Registry, get_root_logger, intersection_and_union
 
 TEST = Registry("test")
 
 
 def load_weights(path: str):
-    """A model ``state_dict`` from a torch ``.pt`` file (optionally under a
-    ``state_dict`` key) or from an ``.npz`` of JAX variables."""
+    """A model ``state_dict`` from a torch ``.pt`` file (a trainer
+    checkpoint's ``model``, a ``state_dict`` key, or the dict itself), from
+    a JAX package ``.ckpt`` or from an ``.npz`` of JAX variables."""
     if path.endswith(".npz"):
         return load_jax_npz(path)
+    if path.endswith(".ckpt"):
+        return load_jax_ckpt(path)
     obj = torch.load(path, map_location="cpu", weights_only=True)
-    return obj.get("state_dict", obj)
+    return obj.get("model", obj.get("state_dict", obj))
 
 
 class TesterBase:

@@ -1,45 +1,128 @@
-"""Semantic-segmentation training on one device (port of the Trainer of
-ao_tpu/engines/train.py).
+"""Semantic-segmentation training on one device (port of TrainerBase and
+Trainer of ao_tpu/engines/train.py).
+
+``TrainerBase`` is the hook lifecycle (reference: pointcept/engines/
+train.py:34-111): before_train, then for every (mega-)epoch before_epoch,
+``run_epoch`` (before_step, ``run_step``, after_step per batch) and
+after_epoch, then after_train; hooks come from ``cfg.hooks``
+(configs/_base_/default_runtime.py: CheckpointLoader, IterationTimer,
+InformationWriter, SemSegEvaluator, CheckpointSaver).
 
 One train step: forward in train mode (batch-statistic BatchNorms,
 stochastic depth), the configured criteria over the valid points, backward,
 ``optimizer.step()`` and a per-step ``scheduler.step()``. It reports the
 metrics ``loss``, ``pool_overflow`` (clusters beyond the grid pools' static
 capacities; 0 when they suffice) and ``grad_norm`` (the L2 norm of all
-gradients; finite iff every gradient is). The train loader shuffles with a
-seeded generator and pads every batch to ``pad_multiple``. A checkpoint of
-model, optimizer and scheduler state is written at the end of training;
-``resume=True`` continues from it.
+gradients; finite iff every gradient is), read back to the host once a
+step. ``cfg.max_steps`` (optional) stops training after that many steps;
+the epoch it ends still runs its after_epoch hooks (evaluation, saving).
+``eval_batch`` scores one validation batch for the evaluator, on the
+grid-sampled points or, when the batch carries ``origin_coord`` /
+``origin_segment``, on the full-resolution points.
 
-Not ported yet: the evaluator and the other hooks, Mix3D collation
-(``mix_prob``), parameter groups, and data parallelism over several cards.
+Not ported yet: Mix3D collation (``mix_prob``), parameter groups, and data
+parallelism over several cards.
 """
 
 from __future__ import annotations
 
 import functools
 import os
-from typing import Dict, List
+from typing import Any, Dict, List, Optional
 
+import numpy as np
 import torch
 
 from ..datasets import build_dataset, collate_fn
 from ..models import build_criteria, build_model
 from ..models.utils import DropPath
-from ..utils import get_root_logger
+from ..ops.knn import knn
+from ..utils import get_root_logger, intersection_and_union
 from ..utils.checkpoint import load_checkpoint, save_checkpoint
 from ..utils.env import set_seed
+from ..utils.events import EventStorage, TensorboardWriter
+from ..utils.misc import intersection_and_union_torch
 from ..utils.optimizer import build_optimizer
 from ..utils.scheduler import build_scheduler
 from ..utils.timer import Timer
+from .hooks import HookBase, build_hooks
+
+# score-matrix elements of one chunk of the evaluator's exact 1-NN
+_NN_CHUNK_ELEMENTS = 2**26
 
 
-class Trainer:
-    """Builds model, criteria, train loader, optimizer and scheduler from
-    ``cfg`` and trains on ``device``. ``cfg.max_steps`` (optional) stops
-    training after that many steps."""
+class TrainerBase:
+    """Hook lifecycle (reference: train.py:34-111)."""
+
+    def __init__(self):
+        self.hooks = []
+        self.epoch = 0
+        self.start_epoch = 0
+        self.max_epoch = 0
+        self.best_metric_value = -1e9
+        self.comm_info: Dict[str, Any] = {}
+        self.storage: Optional[EventStorage] = None
+
+    def register_hooks(self, hooks_cfg):
+        hooks = build_hooks(hooks_cfg)
+        for h in hooks:
+            if not isinstance(h, HookBase):
+                raise TypeError(f"{type(h).__name__} is not a HookBase")
+            h.trainer = self
+        self.hooks = hooks
+
+    def before_train(self):
+        for h in self.hooks:
+            h.before_train()
+
+    def before_epoch(self):
+        for h in self.hooks:
+            h.before_epoch()
+
+    def before_step(self):
+        for h in self.hooks:
+            h.before_step()
+
+    def after_step(self):
+        for h in self.hooks:
+            h.after_step()
+
+    def after_epoch(self):
+        for h in self.hooks:
+            h.after_epoch()
+
+    def after_train(self):
+        if "current_metric_value" in self.comm_info and (
+                self.comm_info["current_metric_value"] > self.best_metric_value):
+            self.best_metric_value = self.comm_info["current_metric_value"]
+        for h in self.hooks:
+            h.after_train()
+
+    def finished(self) -> bool:
+        """True once training should stop before the next epoch."""
+        return False
+
+    def train(self):
+        with EventStorage() as self.storage:
+            self.before_train()
+            for self.epoch in range(self.start_epoch, self.max_epoch):
+                if self.finished():
+                    break
+                self.before_epoch()
+                self.run_epoch()
+                self.after_epoch()
+            self.after_train()
+
+    def run_epoch(self):
+        raise NotImplementedError
+
+
+class Trainer(TrainerBase):
+    """Builds model, criteria, loaders, optimizer, scheduler and hooks from
+    ``cfg`` and trains on ``device``."""
 
     def __init__(self, cfg, device="cuda"):
+        super().__init__()
         self.cfg = cfg
         self.device = torch.device(device)
         self.save_path = cfg.save_path
@@ -63,6 +146,7 @@ class Trainer:
             f"Num params: {sum(p.numel() for p in self.model.parameters())}")
 
         self.train_loader = self.build_train_loader()
+        self.val_loader = self.build_val_loader()
         self.max_epoch = cfg.eval_epoch
         self.total_steps = len(self.train_loader) * self.max_epoch
         self.max_steps = min(cfg.get("max_steps") or self.total_steps,
@@ -70,35 +154,50 @@ class Trainer:
         self.optimizer = build_optimizer(cfg.optimizer, self.model)
         self.scheduler = build_scheduler(cfg.scheduler, self.optimizer,
                                          self.total_steps)
-        self.epoch = 0
         self.step = 0
         self.history: List[Dict[str, float]] = []
-        if cfg.get("resume"):
-            self.resume(os.path.join(self.save_path, "model", "model_last.pt"))
+        self.writer = (TensorboardWriter(self.save_path)
+                       if cfg.get("enable_tensorboard", True) else None)
+        self.register_hooks(cfg.get("hooks"))
 
-    def build_train_loader(self):
+    def _collate(self):
         cfg = self.cfg
-        dataset = build_dataset(cfg.data.train)
-        g = torch.Generator()
-        g.manual_seed(self.seed)
-        collate = functools.partial(
+        return functools.partial(
             collate_fn, pad_multiple=cfg.get("pad_multiple", 4096),
             max_points=cfg.get("max_points"),
             ignore_index=cfg.data.get("ignore_index", -1))
-        workers = min(cfg.get("num_worker", 0), os.cpu_count() or 1)
+
+    def _workers(self):
+        return min(self.cfg.get("num_worker", 0), os.cpu_count() or 1)
+
+    def build_train_loader(self):
+        dataset = build_dataset(self.cfg.data.train)
+        g = torch.Generator()
+        g.manual_seed(self.seed)
         return torch.utils.data.DataLoader(
-            dataset, batch_size=cfg.batch_size, shuffle=True, generator=g,
-            drop_last=True, num_workers=workers, collate_fn=collate,
-            pin_memory=self.device.type == "cuda")
+            dataset, batch_size=self.cfg.batch_size, shuffle=True, generator=g,
+            drop_last=True, num_workers=self._workers(),
+            collate_fn=self._collate(), pin_memory=self.device.type == "cuda")
+
+    def build_val_loader(self):
+        cfg = self.cfg
+        if not cfg.get("evaluate", True) or "val" not in cfg.data:
+            return None
+        return torch.utils.data.DataLoader(
+            build_dataset(cfg.data.val),
+            batch_size=cfg.get("batch_size_val") or 1, shuffle=False,
+            drop_last=False, num_workers=self._workers(),
+            collate_fn=self._collate(), pin_memory=self.device.type == "cuda")
+
+    def _to_device(self, batch):
+        return (batch[k].to(self.device, non_blocking=True)
+                for k in ("coord", "feat", "mask", "segment"))
 
     def train_step(self, batch) -> Dict[str, torch.Tensor]:
         """One optimizer step on a collated batch; returns the metrics as
         device tensors."""
         self.model.train()
-        dev = self.device
-        coord, feat, mask, segment = (
-            batch[k].to(dev, non_blocking=True)
-            for k in ("coord", "feat", "mask", "segment"))
+        coord, feat, mask, segment = self._to_device(batch)
         logits = self.model(coord, feat, mask)
         loss = self.criteria(logits, segment.long(), mask)
         self.optimizer.zero_grad(set_to_none=True)
@@ -110,45 +209,86 @@ class Trainer:
         return dict(loss=loss.detach(), grad_norm=grad_norm,
                     pool_overflow=self.model.backbone.pool_overflow)
 
-    def run_epoch(self) -> bool:
-        """One pass over the loader; False once ``max_steps`` is reached."""
-        n = len(self.train_loader)
+    def finished(self) -> bool:
+        return self.step >= self.max_steps
+
+    def run_epoch(self):
         timer = Timer()  # the data wait, then the step
         for i, batch in enumerate(self.train_loader):
-            data_s = timer.seconds()
+            self.comm_info["data_seconds"] = timer.seconds()
+            self.comm_info["iter"] = i
+            self.before_step()
             timer.reset()
-            lr = self.optimizer.param_groups[0]["lr"]
-            metrics = self.train_step(batch)
-            rec = {k: float(v) for k, v in metrics.items()}  # waits for the step
-            rec.update(step_seconds=timer.seconds(), data_seconds=data_s,
-                       lr=lr, points=int(batch["mask"].sum()))
-            self.history.append(rec)
-            self.step += 1
-            self.logger.info(
-                f"Train: [{self.epoch + 1}/{self.max_epoch}][{i + 1}/{n}] "
-                f"loss {rec['loss']:.4f} grad_norm {rec['grad_norm']:.4g} "
-                f"pool_overflow {rec['pool_overflow']:.0f} lr {lr:.5g} "
-                f"step {rec['step_seconds']:.3f}s data {rec['data_seconds']:.3f}s")
-            timer.reset()
-            if self.step >= self.max_steps:
-                return False
-        return True
-
-    def train(self):
-        while self.epoch < self.max_epoch:
-            go_on = self.run_epoch()
-            self.epoch += 1
-            if not go_on:
+            self.run_step(batch)
+            self.history[-1]["step_seconds"] = timer.seconds()
+            self.after_step()
+            self.storage.step()
+            if self.finished():
                 break
-        self.save(os.path.join(self.save_path, "model", "model_last.pt"))
-        return self.history
+            timer.reset()
 
-    def save(self, path):
+    def run_step(self, batch):
+        lr = self.optimizer.param_groups[0]["lr"]
+        metrics = self.train_step(batch)
+        loss_dict = {k: float(v) for k, v in metrics.items()}  # waits for the step
+        self.comm_info["loss_dict"] = loss_dict
+        self.step += 1
+        self.history.append(dict(
+            loss_dict, data_seconds=self.comm_info["data_seconds"], lr=lr,
+            points=int(batch["mask"].sum()), epoch=self.epoch))
+
+    def current_lr(self) -> float:
+        """The learning rate of the last step taken."""
+        if self.history:
+            return self.history[-1]["lr"]
+        return self.optimizer.param_groups[0]["lr"]
+
+    @torch.no_grad()
+    def eval_batch(self, batch):
+        """(loss, intersection, union, target) of one validation batch: the
+        loss over its valid points and the per-class IoU histograms (numpy)
+        of its predictions. When the batch carries ``origin_coord`` /
+        ``origin_segment`` (under ``extras``), each scene's predictions on
+        its grid-sampled points are carried to its full-resolution points
+        by their exact nearest sampled point and scored there."""
+        self.model.eval()
+        coord, feat, mask, segment = self._to_device(batch)
+        logits = self.model(coord, feat, mask)
+        loss = float(self.criteria(logits, segment.long(), mask))
+        pred = logits.argmax(-1)
+        K = self.cfg.data.num_classes
+        ignore = self.cfg.data.get("ignore_index", -1)
+        extras = batch.get("extras", {})
+        if "origin_coord" not in extras:
+            target = torch.where(mask, segment.long(), ignore)
+            hist = intersection_and_union_torch(pred, target, K, ignore)
+            return (loss, *(h.cpu().numpy() for h in hist))
+        inter, union, target = np.zeros(K), np.zeros(K), np.zeros(K)
+        for b, origin in enumerate(extras["origin_coord"]):
+            sampled = coord[b][mask[b]]
+            oc = torch.as_tensor(np.asarray(origin, np.float32),
+                                 device=self.device)
+            chunk = max(_NN_CHUNK_ELEMENTS // max(len(sampled), 1), 1)
+            nn = torch.cat([knn(q[None], sampled[None], 1)[0][0, :, 0]
+                            for q in oc.split(chunk)])
+            full_pred = pred[b][mask[b]][nn.long()].cpu().numpy()
+            i, u, t = intersection_and_union(
+                full_pred, np.asarray(extras["origin_segment"][b]).reshape(-1),
+                K, ignore)
+            inter += i
+            union += u
+            target += t
+        return loss, inter, union, target
+
+    def save(self, path, epoch):
+        """The port's checkpoint: model, optimizer and scheduler state, the
+        number of completed epochs, the step and the best metric."""
         save_checkpoint(path, dict(
             model=self.model.state_dict(),
             optimizer=self.optimizer.state_dict(),
             scheduler=self.scheduler.state_dict(),
-            epoch=self.epoch, step=self.step))
+            epoch=epoch, step=self.step,
+            best_metric_value=float(self.best_metric_value)))
         self.logger.info(f"Saved checkpoint: {path}")
 
     def resume(self, path):
@@ -156,6 +296,8 @@ class Trainer:
         self.model.load_state_dict(state["model"])
         self.optimizer.load_state_dict(state["optimizer"])
         self.scheduler.load_state_dict(state["scheduler"])
-        self.epoch, self.step = state["epoch"], state["step"]
-        self.logger.info(f"Resumed from {path} at epoch {self.epoch}, "
-                         f"step {self.step}")
+        self.start_epoch, self.step = state["epoch"], state["step"]
+        self.best_metric_value = state.get("best_metric_value",
+                                           self.best_metric_value)
+        self.logger.info(f"Resumed from {path} at epoch {self.start_epoch}, "
+                         f"step {self.step} (best {self.best_metric_value:.4f})")

@@ -149,3 +149,13 @@ def load_jax_npz(path: str):
                 node = node.setdefault(p, {})
             node[leaf] = z[key]
     return from_jax_variables(tree["params"], tree.get("batch_stats", {}))
+
+
+def load_jax_ckpt(path: str):
+    """The port's ``state_dict`` from a JAX package checkpoint (``.ckpt``,
+    flax msgpack of a train state's ``params`` and ``batch_stats``), read
+    without flax."""
+    from ...utils.checkpoint import load_flax_checkpoint
+
+    state, _ = load_flax_checkpoint(path)
+    return from_jax_variables(state["params"], state.get("batch_stats", {}))

@@ -43,6 +43,10 @@ _SIGNATURES = {
     "knn_window_launch": [_P] * 7 + [_I] * 7 + [_P],
     # d2, idx, d2_out, idx_out, rows, width, k, stream
     "merge_topk_launch": [_P] * 4 + [_L, _I, _I, _P],
+    # s[P], idx[P], q2[P], inv[P] (host arrays of device pointers), d2_out,
+    # idx_out, P, k, B, Nq, Nqp, stream
+    "merge_topk_probes_launch": [ctypes.POINTER(_P)] * 4 + [_P] * 2
+    + [_I] * 5 + [_P],
     # src, qrow, idx, valid, A, cA, Wp2, bp2, W1f, b1f, W2, b2, out,
     # B, Nsrc, Nq, S, C, G, nblk, stream
     "gva_eval_launch": [_P] * 13 + [_I] * 7 + [_P],

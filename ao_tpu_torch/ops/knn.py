@@ -3,8 +3,9 @@
 Used below ``interpolation._EXACT_PAIR_BUDGET`` query x key pairs, where
 the full (B, M, N) score matrix is small. Scores rank as
 ``|k|^2 - 2 q.k`` (invalid keys carry a 1e30 penalty), ties go to the
-lower key index (a stable sort), and the returned distances are recomputed
-by subtract-and-square, as in the JAX version.
+lower key index (a stable sort; for k = 1 the first minimum, the same
+key), and the returned distances are recomputed by subtract-and-square,
+as in the JAX version.
 """
 
 from __future__ import annotations
@@ -38,9 +39,12 @@ def knn(
     pen = torch.where(key_mask, 0.0, _BIG)
     k2 = (kc * kc).sum(-1) + pen
     s = k2[:, None, :] - 2.0 * torch.bmm(q, kc.transpose(1, 2))
-    s, order = torch.sort(s, dim=-1, stable=True)
     kk = min(k, N)
-    d2, idx = s[..., :kk], order[..., :kk]
+    if kk == 1:  # the first minimum: the stable sort's first entry
+        d2, idx = s.min(dim=-1, keepdim=True)
+    else:
+        s, order = torch.sort(s, dim=-1, stable=True)
+        d2, idx = s[..., :kk], order[..., :kk]
     if kk < k:
         d2 = torch.cat([d2, d2.new_full((B, M, k - kk), _BIG)], dim=-1)
         idx = torch.cat([idx, idx.new_zeros((B, M, k - kk))], dim=-1)

@@ -11,7 +11,10 @@ graph of the slab path: tile t searches exactly rows
 This module carries two kernels (CUDA sources under ``csrc/``):
 
 * K1 ``knn_window`` -- the per-tile windowed k-smallest search;
-* K2 ``merge_topk`` -- the probe merge with duplicate suppression.
+* K2 ``merge_topk`` -- the probe merge with duplicate suppression; on
+  the card a multi-probe search hands its probes' raw outputs to
+  ``merge_topk_probes``, the same kernel with every probe's tail (|q|^2,
+  the missing mask, the gather back to query order) folded into its loads.
 
 Each wrapper launches its kernel for CUDA tensors and counts the launch
 in ``<wrapper>.launches``; for CPU tensors it runs the plain PyTorch
@@ -20,6 +23,7 @@ version beside it, which computes the same function.
 
 from __future__ import annotations
 
+import ctypes
 from typing import Optional, Tuple
 
 import torch
@@ -168,6 +172,64 @@ def merge_topk(d2, idx, k):
 
 merge_topk.launches = 0
 
+# (probes, k) with a fused instance of K2: the unpool search's and the
+# multi-probe self graph's
+_FUSED = ((2, 3), (3, 16))
+
+
+def merge_topk_probes_plain(s, idx, q2, inv, k):
+    """Plain PyTorch version of the fused K2: each probe's tail
+    (``_probe_tail``), their concatenation and ``merge_topk_plain``."""
+    tails = [_probe_tail(*p) for p in zip(s, idx, q2, inv)]
+    return merge_topk_plain(torch.cat([t[0] for t in tails], -1),
+                            torch.cat([t[1] for t in tails], -1), k)
+
+
+def merge_topk_probes(s, idx, q2, inv, k):
+    """K2 with every probe's tail folded into its loads (replaces
+    ops/pallas/merge_topk.py:merge_topk_dedup on the concatenated probes,
+    and the per-probe tail ``_probe_tail`` before it).
+
+    Per probe p (tuples of P tensors each): the window search's scores
+    s[p] (B, Nqp, k) and ids idx[p] (B, Nqp, k) in that probe's sorted
+    query order, |q|^2 q2[p] (B, Nqp) in the same order, and the inverse
+    permutation inv[p] (B, Nq) from original query to sorted row. Returns
+    the k best distinct candidates in original query order, (B, Nq, k)
+    each, bit for bit ``merge_topk_probes_plain``."""
+    if s[0].device.type == "cpu":
+        return merge_topk_probes_plain(s, idx, q2, inv, k)
+    P = len(s)
+    B, Nqp = q2[0].shape
+    Nq = inv[0].shape[1]
+    if (P, k) not in _FUSED:
+        raise ValueError(f"merge_topk_probes: no instance for {P} probes "
+                         f"of k={k}")
+    s = [x.float().contiguous() for x in s]
+    idx = [x.to(torch.int32).contiguous() for x in idx]
+    q2 = [x.float().contiguous() for x in q2]
+    inv = [x.to(torch.int32).contiguous() for x in inv]
+    for a, b, c, d in zip(s, idx, q2, inv):
+        if (a.shape != (B, Nqp, k) or b.shape != (B, Nqp, k)
+                or c.shape != (B, Nqp) or d.shape != (B, Nq)):
+            raise ValueError("merge_topk_probes: probe shapes differ")
+    _native.require_cuda("merge_topk_probes", *s, *idx, *q2, *inv)
+    out_d2 = torch.empty((B, Nq, k), dtype=torch.float32, device=q2[0].device)
+    out_idx = torch.empty((B, Nq, k), dtype=torch.int32, device=q2[0].device)
+
+    def ptrs(ts):
+        return (ctypes.c_void_p * P)(*[t.data_ptr() for t in ts])
+
+    err = _native.lib().merge_topk_probes_launch(
+        ptrs(s), ptrs(idx), ptrs(q2), ptrs(inv), out_d2.data_ptr(),
+        out_idx.data_ptr(), P, k, B, Nq, Nqp, _native.stream_ptr(out_d2),
+    )
+    _native.check(err, "merge_topk_probes")
+    merge_topk_probes.launches += 1
+    return out_d2, out_idx
+
+
+merge_topk_probes.launches = 0
+
 
 # ---------------------------------------------------------------------------
 # curve codes and probes
@@ -225,9 +287,12 @@ def _pad_rows(x, before, after, value=0.0):
 
 def _window_probe(query, key, qmask, kmask, k, tile_q, window, shift,
                   self_mode):
-    """One curve probe (self or cross). Returns (d2, idx) in original query
-    order / original key ids; d2 is the full squared distance so that
-    probes merge on comparable values."""
+    """One curve probe (self or cross), as the window search left it in the
+    probe's curve-sorted query order: (scores s (B, Nqp, k) without |q|^2,
+    ORIGINAL key ids (B, Nqp, k), |q|^2 (B, Nqp), the inverse permutation
+    (B, Nq) from original query to sorted row). ``_probe_tail`` turns it
+    into full squared distances in original query order, on which probes
+    merge."""
     B, Nq, _ = query.shape
     Nk = key.shape[1]
     Nqp = -(-Nq // tile_q) * tile_q
@@ -272,13 +337,27 @@ def _window_probe(query, key, qmask, kmask, k, tile_q, window, shift,
         # queries ARE the sorted keys: |q|^2 = k2 - pen
         q2 = _pad_rows(k2[:, :Nq], 0, Nqp - Nq)
     else:
-        q2 = _pad_rows((_take_rows(query, order_q) ** 2).sum(-1), 0, Nqp - Nq)
+        q2 = (q_sorted * q_sorted).sum(-1)  # pad rows are 0
+    return s, idx_orig, q2, _inverse_permutation(order_q)
+
+
+def _inverse_permutation(order):
+    """int32 ``inv`` with ``inv[b, order[b, i]] = i``, by one scatter."""
+    B, N = order.shape
+    inv = torch.empty((B, N), dtype=torch.int32, device=order.device)
+    return inv.scatter_(1, order, torch.arange(
+        N, dtype=torch.int32, device=order.device).expand(B, N))
+
+
+def _probe_tail(s, idx, q2, inv):
+    """One probe's window-search output (``_window_probe``) as full squared
+    distances (1e30 = missing) and ids >= 0, in original query order."""
+    Nq = inv.shape[1]
     d2 = (s + q2[:, :, None])[:, :Nq]
-    idx_orig = idx_orig[:, :Nq].clamp_min(0)
+    idx = idx[:, :Nq].clamp_min(0)
     d2 = torch.where(s[:, :Nq] > _BIG / 2, _BIG, d2)
-    # back to the original query order by the inverse permutation
-    inv_q = torch.argsort(order_q, dim=1)
-    return _take_rows(d2, inv_q), _take_rows(idx_orig, inv_q)
+    inv = inv.long()
+    return _take_rows(d2, inv), _take_rows(idx, inv)
 
 
 def _merge_probes(d2s, idxs, k):
@@ -319,15 +398,14 @@ def _finalize(d2, idx, query_coord, key_coord, query_mask, exact_dist=True):
 
 def _multi_probe(query, key, qmask, kmask, k, tile_q, window, probes,
                  self_mode):
-    d2s, idxs = [], []
-    for p in range(probes):
-        d2p, idxp = _window_probe(query, key, qmask, kmask, k, tile_q, window,
-                                  _PROBE_SHIFTS[p], self_mode)
-        d2s.append(d2p)
-        idxs.append(idxp)
+    raw = [_window_probe(query, key, qmask, kmask, k, tile_q, window,
+                         _PROBE_SHIFTS[p], self_mode) for p in range(probes)]
     if probes == 1:
-        return d2s[0], idxs[0]
-    return _merge_probes(d2s, idxs, k)
+        return _probe_tail(*raw[0])
+    if query.is_cuda and (probes, k) in _FUSED:
+        return merge_topk_probes(*zip(*raw), k)
+    d2s, idxs = zip(*(_probe_tail(*r) for r in raw))
+    return _merge_probes(list(d2s), list(idxs), k)
 
 
 def _ones_mask(x):

@@ -3,11 +3,18 @@
     python -m ao_tpu_torch.tools.train --config-file configs/s3dis/semseg-pt-v2m2-0-base.py \
         --options save_path=<dir> [max_steps=<n>] [--device cpu]
 
-Runs on the card unless ``--device cpu`` is given. ``main`` returns the
-trainer, whose ``history`` holds the per-step records.
+Runs on the card unless ``--device cpu`` is given. The trainer registers
+the config's ``hooks`` (configs/_base_/default_runtime.py: CheckpointLoader,
+IterationTimer, InformationWriter, SemSegEvaluator, CheckpointSaver), so
+``weight=<.pt | JAX .ckpt>`` fine-tunes, ``resume=True`` continues from
+``weight`` or from the run's own ``model/model_last.pt``, and every epoch
+ends with an evaluation on ``data.val``. ``main`` returns the trainer,
+whose ``history`` holds the per-step records.
 """
 
 from __future__ import annotations
+
+import numpy as np
 
 from ..engines import Trainer, default_argument_parser, default_config_parser
 
@@ -17,6 +24,13 @@ def main(argv=None):
     cfg = default_config_parser(args.config_file, args.options)
     trainer = Trainer(cfg, device=args.device)
     trainer.train()
+    hist = trainer.history[1:]  # the first step pays the warm-up
+    if hist:
+        trainer.logger.info(
+            f"{len(trainer.history)} steps on {trainer.device}: median of "
+            f"steps 2-{len(trainer.history)} "
+            f"{np.median([r['step_seconds'] for r in hist]):.4f} s a step, "
+            f"data wait {np.median([r['data_seconds'] for r in hist]):.4f} s")
     return trainer
 
 

@@ -1,8 +1,11 @@
-"""Metric helpers (port of ao_tpu/utils/misc.py, host-side numpy)."""
+"""Metric helpers (port of ao_tpu/utils/misc.py): histograms of
+predictions against labels, in numpy on the host or in torch on the
+tensors' device."""
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 
 def intersection_and_union(output, target, K, ignore_index=-1, get_output=False):
@@ -19,3 +22,18 @@ def intersection_and_union(output, target, K, ignore_index=-1, get_output=False)
     if get_output:
         return area_intersection, area_union, area_target, area_output
     return area_intersection, area_union, area_target
+
+
+def intersection_and_union_torch(output, target, K, ignore_index=-1):
+    """Per-class intersection / union / target histograms (int64 tensors of
+    shape (K,)) of two int tensors of the same shape, on their device
+    (port of ao_tpu's intersection_and_union_jax): points whose target is
+    ``ignore_index`` count nowhere."""
+    output = output.reshape(-1).long()
+    target = target.reshape(-1).long()
+    valid = target != ignore_index
+    output, target = output[valid], target[valid]
+    inter = torch.bincount(output[output == target], minlength=K)[:K]
+    area_out = torch.bincount(output, minlength=K)[:K]
+    area_tgt = torch.bincount(target, minlength=K)[:K]
+    return inter, area_out + area_tgt - inter, area_tgt

@@ -29,11 +29,17 @@ PT-v2m2 runs at the full width of configs/s3dis/semseg-pt-v2m2-0-base.py.
    batch's own graphs, K3 with batch-statistic folds, K4 position
    moments, K5 weight-BN statistics, K6 backward); each held against its
    plain version and timed as in 2.
-5. Train phase: a few steps of the base config's Trainer through the
-   port's entry point (ao_tpu_torch.tools.train) on the three rooms; every
-   loss and gradient norm must be finite and the parameters must move.
-   Prints the step seconds, the data wait and the peak device memory, then
-   times and traces one more step with torch.profiler.
+5. Train phase: a few steps of the base config's hook-driven Trainer
+   through the port's entry point (ao_tpu_torch.tools.train) on the three
+   rooms, with the config's hooks (CheckpointLoader, IterationTimer,
+   InformationWriter, SemSegEvaluator, CheckpointSaver); the run stops on
+   max_steps inside its first epoch, whose end evaluates the slice's room
+   (its full-resolution points, through the origin-coord re-projection)
+   and saves model_last.pt and model_best.pt. Every loss and gradient norm
+   must be finite, the parameters must move, the validation metrics must
+   be finite and both checkpoints must exist. Prints the step seconds, the
+   data wait, the peak device memory and the validation line, then times
+   and traces one more step with torch.profiler.
 
 Each main path (the slice phase, the train phase) runs with every
 kernel's launch count set to 0 just before it and read just after, and
@@ -206,6 +212,24 @@ def make_room(seed, size=(4.8, 4.0, 2.6), spacing=0.034):
 # ---------------------------------------------------------------------------
 
 
+def _shape_key(a):
+    if torch.is_tensor(a):
+        return tuple(a.shape)
+    if isinstance(a, (tuple, list)):
+        return tuple(_shape_key(x) for x in a)
+    return a
+
+
+def _clone(a):
+    if torch.is_tensor(a):
+        return a.clone()
+    if isinstance(a, dict):
+        return {k: v.clone() for k, v in a.items()}
+    if isinstance(a, (tuple, list)):
+        return type(a)(_clone(x) for x in a)
+    return a
+
+
 class Capture:
     """Wraps the kernel wrappers so that the inputs of the first call of
     each (kernel, shape) are kept for the comparison with the plain
@@ -219,14 +243,10 @@ class Capture:
         fn = getattr(module, attr)
 
         def rec(*args):
-            key = (name,) + tuple(
-                tuple(a.shape) if torch.is_tensor(a) else a
-                for a in args if not isinstance(a, dict))
+            key = (name,) + tuple(_shape_key(a) for a in args
+                                  if not isinstance(a, dict))
             if key not in self.calls:
-                self.calls[key] = (name, fn, [
-                    a.clone() if torch.is_tensor(a)
-                    else {k: v.clone() for k, v in a.items()}
-                    if isinstance(a, dict) else a for a in args])
+                self.calls[key] = (name, fn, [_clone(a) for a in args])
             return fn(*args)
 
         # the wrapper counts its launches on the module attribute, which
@@ -300,14 +320,33 @@ def check_knn_window(args, out_k, out_p):
 
 
 def check_merge_topk(args, out_k, out_p):
-    d2, idx, k = args
+    """The fused K2 (every probe's tail in its loads) against its plain
+    version, bit for bit; beside it, the row kernel on the concatenated
+    tails against merge_topk_plain, bit for bit, with its device ms."""
+    from ao_tpu_torch.ops import knn_spatial as ks
+    from ao_tpu_torch.utils.devtime import device_ms
+
+    s, idx, q2, inv, k = args
     (dk, ik), (dp, ip) = out_k, out_p
     ok = torch.equal(ik, ip) and torch.equal(dk.view(torch.int32),
                                              dp.view(torch.int32))
-    rows, width = d2.numel() // d2.shape[-1], d2.shape[-1]
-    nbytes = _nbytes(d2, idx) + rows * k * 8
-    bound_ms, by = _bound(nbytes, f32_ops=3.0 * rows * k * width)
-    return ok, float((dk - dp).abs().max()), bound_ms, by, None, "bitwise"
+    tails = [ks._probe_tail(*p) for p in zip(s, idx, q2, inv)]
+    d2 = torch.cat([t[0] for t in tails], -1)
+    ids = torch.cat([t[1] for t in tails], -1)
+    rk, rp = ks.merge_topk(d2, ids, k), ks.merge_topk_plain(d2, ids, k)
+    rows_ok = torch.equal(rk[1], rp[1]) and torch.equal(
+        rk[0].view(torch.int32), rp[0].view(torch.int32))
+    rows_ms = device_ms(lambda: ks.merge_topk(d2, ids, k), "merge_topk_kernel",
+                        reps=5, warmup=1)
+    B, Nq = inv[0].shape
+    width = len(s) * k
+    # per query and probe: its inverse row, k scores, k ids and |q|^2 read
+    # once; k scores and ids written
+    nbytes = B * Nq * (len(s) * (4 + 8 * k + 4) + 8 * k)
+    bound_ms, by = _bound(nbytes, f32_ops=3.0 * B * Nq * k * width)
+    return ok and rows_ok, float((dk - dp).abs().max()), bound_ms, by, None, (
+        f"bitwise; row kernel on the concatenated tails bitwise={rows_ok} "
+        f"device_ms={rows_ms:.4f}")
 
 
 def check_gva_eval(args, out_k, out_p):
@@ -433,8 +472,9 @@ def describe(name, args):
         return (f"B={q.shape[0]} Nq={q.shape[1]} Nk={keys.shape[1]} k={k} "
                 f"tile_q={tile_q} window={window}")
     if name == "merge_topk":
-        d2, _, k = args
-        return f"B={d2.shape[0]} N={d2.shape[1]} width={d2.shape[2]} k={k}"
+        s, _, _, inv, k = args
+        return (f"B={inv[0].shape[0]} N={inv[0].shape[1]} probes={len(s)} "
+                f"k={k} width={len(s) * k}")
     B, Nq, S, Nsrc, C = _gva_dims(args)
     mode = "slab" if Nsrc >= 2048 else "gathered"
     G = (args[4]["W2"].shape[0] if name in ("gva_eval", "gva_bwd")
@@ -453,7 +493,8 @@ def plain_versions():
     from ao_tpu_torch.ops import gva as g
     from ao_tpu_torch.ops import knn_spatial as ks
 
-    PLAIN.update(knn_window=ks.knn_window_plain, merge_topk=ks.merge_topk_plain,
+    PLAIN.update(knn_window=ks.knn_window_plain,
+                 merge_topk=ks.merge_topk_probes_plain,
                  gva_eval=g.gva_eval_plain, gva_pos=g.gva_pos_plain,
                  gva_stats=g.gva_stats_plain, gva_bwd=g.gva_bwd_plain)
     return PLAIN
@@ -516,7 +557,7 @@ def kernel_phase(model, batches, t0, device):
 
     cap = Capture()
     cap.wrap(ks, "knn_window", "knn_window")
-    cap.wrap(ks, "merge_topk", "merge_topk")
+    cap.wrap(ks, "merge_topk_probes", "merge_topk")
     cap.wrap(ptv2m2, "gva_eval", "gva_eval")
     try:
         for label, coord, feat, mask in batches:
@@ -545,7 +586,7 @@ def train_kernel_phase(trainer, batches, t0):
 
     cap = Capture()
     cap.wrap(ks, "knn_window", "knn_window")
-    cap.wrap(ks, "merge_topk", "merge_topk")
+    cap.wrap(ks, "merge_topk_probes", "merge_topk")
     for name in ("gva_pos", "gva_stats", "gva_eval", "gva_bwd"):
         cap.wrap(gva_mod, name, name)
     try:
@@ -717,11 +758,17 @@ def profile_forward(model, batch, device):
 
 
 def train_setup(rooms, workdir=None, batch_size=3, max_steps=5, workers=3,
-                seed=0):
+                seed=0, val_room=None):
     """Write the rooms (from :func:`make_room`) as scenes of the S3DIS train
     split under ``workdir`` (a new temporary directory by default), one
-    area each. Returns (workdir, the train entry point's KEY=VALUE config
-    overrides)."""
+    area each, and ``val_room`` as the validation split's one scene.
+    Returns (workdir, the train entry point's KEY=VALUE config overrides).
+    The validation pipeline is the config's with ``origin_coord`` /
+    ``origin_segment`` collected, so that the evaluator scores the
+    full-resolution points through the nearest-neighbour re-projection;
+    without ``val_room``, evaluation is off. TensorBoard is off."""
+    from ao_tpu_torch.utils import Config
+
     workdir = workdir or tempfile.mkdtemp(prefix="ao_chip_train_")
     for i, room in enumerate(rooms):
         room_dir = os.path.join(workdir, "s3dis", f"Area_{i + 1}")
@@ -730,8 +777,19 @@ def train_setup(rooms, workdir=None, batch_size=3, max_steps=5, workers=3,
     options = [f"save_path={os.path.join(workdir, 'exp')}",
                f"data.train.data_root={os.path.join(workdir, 's3dis')}",
                f"batch_size={batch_size}", f"max_steps={max_steps}",
-               f"num_worker={workers}", f"seed={seed}"]
-    return workdir, options
+               f"num_worker={workers}", f"seed={seed}",
+               "enable_tensorboard=False"]
+    if val_room is None:
+        return workdir, options + ["evaluate=False"]
+    val_dir = os.path.join(workdir, "s3dis_val", "Area_5")
+    os.makedirs(val_dir, exist_ok=True)
+    np.savez(os.path.join(val_dir, "office_v.npz"), **val_room)
+    transform = [dict(t) for t in Config.fromfile(BASE_CONFIG).data.val.transform]
+    collect = next(t for t in transform if t["type"] == "Collect")
+    collect["keys"] = tuple(collect["keys"]) + ("origin_coord", "origin_segment")
+    return workdir, options + [
+        f"data.val.data_root={os.path.join(workdir, 's3dis_val')}",
+        f"data.val.transform={transform!r}"]
 
 
 def build_trainer(options, device):
@@ -774,6 +832,21 @@ def check_train(trainer, steps):
     return changed, len(params)
 
 
+def check_val(trainer):
+    """The evaluator ran once, on the validation room's full-resolution
+    points, with finite metrics, and the checkpoint saver wrote
+    model_last.pt and model_best.pt; returns the evaluator's result."""
+    val = trainer.comm_info.get("val_result")
+    if val is None or val["batches"] != 1:
+        raise RuntimeError(f"the evaluator did not score the validation room: {val}")
+    if not all(np.isfinite(val[k]) for k in ("mIoU", "mAcc", "allAcc", "loss")):
+        raise RuntimeError(f"non-finite validation metrics {val}")
+    for name in ("model_last.pt", "model_best.pt"):
+        if not os.path.isfile(os.path.join(trainer.save_path, "model", name)):
+            raise RuntimeError(f"the checkpoint saver wrote no {name}")
+    return val
+
+
 def profile_train_step(trainer, batch):
     """Time one train step (host clock around a synchronised step), then
     trace one with torch.profiler: device time by kernel name and the
@@ -805,7 +878,8 @@ def _wrappers():
     from ao_tpu_torch.ops import gva, knn_spatial
 
     return {"knn_window": knn_spatial.knn_window,
-            "merge_topk": knn_spatial.merge_topk, "gva_eval": gva.gva_eval,
+            "merge_topk": knn_spatial.merge_topk_probes,
+            "gva_eval": gva.gva_eval,
             "gva_pos": gva.gva_pos, "gva_stats": gva.gva_stats,
             "gva_bwd": gva.gva_bwd}
 
@@ -864,7 +938,8 @@ def run(device, seed, t0, room_size=(4.8, 4.0, 2.6), train_steps=5, card="",
     log(t0, "forward profile done")
 
     rooms = [make_room(s, size) for s, size in TRAIN_ROOMS]
-    workdir, options = train_setup(rooms, max_steps=train_steps, seed=seed)
+    workdir, options = train_setup(rooms, max_steps=train_steps, seed=seed,
+                                   val_room=room)
     log(t0, f"train rooms: {[len(r['coord']) for r in rooms]} points")
     trainer = build_trainer(
         options + [f"save_path={os.path.join(workdir, 'exp_kernels')}"], device)
@@ -885,6 +960,11 @@ def run(device, seed, t0, room_size=(4.8, 4.0, 2.6), train_steps=5, card="",
                                      lambda: run_train(device, options))
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
     changed, n_params = check_train(trainer, train_steps)
+    val = check_val(trainer)
+    print(f"train: val (random weights, {train_steps} steps) mIoU "
+          f"{val['mIoU']:.4f} mAcc {val['mAcc']:.4f} allAcc {val['allAcc']:.4f}"
+          f" loss {val['loss']:.4f}; evaluation {val['seconds']:.2f} s; "
+          f"model_last.pt and model_best.pt written", flush=True)
     hist = trainer.history
     step_s = float(np.median([r["step_seconds"] for r in hist[1:]]))
     print(f"train: (B, N) {tuple(train_batch['mask'].shape)} points/step "

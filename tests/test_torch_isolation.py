@@ -1,8 +1,9 @@
 """ao_tpu_torch and chip_smoke.py stand alone: they import neither JAX nor
 ao_tpu (nor flax or optax), build no extension through
 torch.utils.cpp_extension, and the smoke script's slice phase and train
-phase run end to end (on the CPU, at a tiny size) with JAX and ao_tpu made
-unimportable."""
+phase (the hook-driven trainer, with its evaluation of a validation room
+and its checkpoints) run end to end (on the CPU, at a tiny size) with JAX
+and ao_tpu made unimportable."""
 
 import os
 import re
@@ -23,9 +24,9 @@ import chip_smoke
 res, votes, n_views = chip_smoke.run_slice(
     "cpu", 0, room_size=(1.0, 0.8, 0.5), views=1, pad_multiple=256)
 chip_smoke.check_votes(votes, n_views)
-rooms = [chip_smoke.make_room(s, (0.8, 0.7, 0.5)) for s in (1, 2)]
-_, options = chip_smoke.train_setup(rooms, batch_size=2, max_steps=1,
-                                    workers=0)
+rooms = [chip_smoke.make_room(s, (0.8, 0.7, 0.5)) for s in (1, 2, 3)]
+_, options = chip_smoke.train_setup(rooms[:2], batch_size=2, max_steps=1,
+                                    workers=0, val_room=rooms[2])
 backbone = dict(patch_embed_channels=16, patch_embed_groups=2,
                 enc_channels=(16, 32, 64), enc_groups=(2, 4, 8),
                 dec_channels=(16, 16, 32), dec_groups=(2, 2, 4),
@@ -33,6 +34,7 @@ backbone = dict(patch_embed_channels=16, patch_embed_groups=2,
 trainer = chip_smoke.run_train("cpu", options + [
     f"model.backbone={backbone!r}", "pad_multiple=512"])
 chip_smoke.check_train(trainer, 1)
+chip_smoke.check_val(trainer)
 assert not any(k == "jax" or k.startswith(("jax.", "ao_tpu.", "flax", "optax"))
                for k, v in sys.modules.items() if v is not None)
 print("ISOLATED", res["scenes"][0]["fragments"], trainer.history[0]["loss"])

@@ -161,6 +161,80 @@ def test_merge_topk_plain_matches_pallas_bitwise(probes, k):
     assert tks.merge_topk.launches == 0
 
 
+def _old_probe_tail(s, idx, q2, order):
+    """The multi-probe tail as the port computed it before K2 took it in:
+    d2 = s + |q|^2 (1e30 where s is), ids clamped at 0, and a gather back
+    to query order by the argsort of the probe's query order."""
+    Nq = order.shape[1]
+    d2 = (s + q2[:, :, None])[:, :Nq]
+    idx = idx[:, :Nq].clamp_min(0)
+    d2 = torch.where(s[:, :Nq] > _BIG / 2, _BIG, d2)
+    inv = torch.argsort(order, dim=1)
+    return (torch.gather(d2, 1, inv[..., None].expand(-1, -1, d2.shape[2])),
+            torch.gather(idx, 1, inv[..., None].expand(-1, -1, idx.shape[2])))
+
+
+@pytest.mark.parametrize("probes,k", [(2, 3), (3, 16)])
+def test_merge_topk_probes_plain_matches_old_tail_and_merge(probes, k):
+    """The fused K2's plain version against the old per-probe tail, their
+    concatenation and merge_topk_plain, bit for bit: duplicate ids across
+    probes at one query, queries with fewer than k valid candidates
+    (1e30 scores with negative ids, as the window search pads them),
+    masked pad queries, and sorted pad rows past Nq holding NaN, which no
+    output may read."""
+    rng = np.random.default_rng(probes * 10 + k)
+    B, Nq, tile_q = 2, 700, 256
+    Nqp = -(-Nq // tile_q) * tile_q
+    base_ids = rng.integers(0, 400, (B, Nq, k))
+    s_list, i_list, q_list, o_list, inv_list = [], [], [], [], []
+    for p in range(probes):
+        ids = rng.integers(0, 400, (B, Nq, k))
+        # a third of every query's candidates are its probe 0 candidates
+        share = rng.random((B, Nq, k)) < 0.35
+        ids = np.where(share, base_ids, ids) if p else base_ids
+        q = rng.uniform(0, 9, (B, Nq)).astype(np.float32)
+        s = np.sort(rng.uniform(-q[..., None], 1.0, (B, Nq, k)), -1)
+        s = s.astype(np.float32)
+        # fewer than k valid candidates: the tail of the row missing
+        n_valid = rng.integers(0, k + 1, (B, Nq))
+        missing = np.arange(k) >= np.where(rng.random((B, Nq)) < 0.2,
+                                           n_valid, k)[..., None]
+        s = np.where(missing, np.float32(_BIG), s)
+        ids = np.where(missing, -rng.integers(1, 5, (B, Nq, k)), ids)
+        ids[:, -40:] = rng.integers(0, 400, (B, 40, k))  # masked pad queries
+        order = np.stack([rng.permutation(Nq) for _ in range(B)])
+        # to the probe's sorted query order, with NaN pad rows past Nq
+        s_sorted = np.full((B, Nqp, k), np.nan, np.float32)
+        i_sorted = np.full((B, Nqp, k), 2**31 - 1, np.int32)
+        q_sorted = np.full((B, Nqp), np.nan, np.float32)
+        for b in range(B):
+            s_sorted[b, :Nq] = s[b, order[b]]
+            i_sorted[b, :Nq] = ids[b, order[b]]
+            q_sorted[b, :Nq] = q[b, order[b]]
+        order_t = torch.from_numpy(order)
+        s_list.append(torch.from_numpy(s_sorted))
+        i_list.append(torch.from_numpy(i_sorted))
+        q_list.append(torch.from_numpy(q_sorted))
+        o_list.append(order_t)
+        inv_list.append(tks._inverse_permutation(order_t))
+    old = [_old_probe_tail(*a) for a in zip(s_list, i_list, q_list, o_list)]
+    rd2, ridx = tks.merge_topk_plain(torch.cat([o[0] for o in old], -1),
+                                     torch.cat([o[1] for o in old], -1), k)
+    tks.merge_topk_probes.launches = 0
+    for fn in (tks.merge_topk_probes_plain, tks.merge_topk_probes):
+        d2, idx = fn(s_list, i_list, q_list, inv_list, k)
+        assert d2.shape == (B, Nq, k) and idx.shape == (B, Nq, k)
+        np.testing.assert_array_equal(idx.numpy(), ridx.numpy())
+        np.testing.assert_array_equal(d2.numpy().view(np.int32),
+                                      rd2.numpy().view(np.int32))
+    assert tks.merge_topk_probes.launches == 0
+    # the cases occurred: no NaN pad row read, rows short of k distinct
+    # ids, and most queries with an id in two probes
+    assert np.isfinite(rd2.numpy()).all() and (rd2.numpy() >= _BIG / 2).any()
+    dup = (old[1][1][..., :, None] == old[0][1][..., None, :]).any(-1).any(-1)
+    assert float(dup.float().mean()) > 0.5
+
+
 # ---------------------------------------------------------------- K3
 
 
