@@ -8,7 +8,9 @@ into one shared library at first use and bound through ``ctypes``
 (``ops/_native.py``); on CPU tensors each kernel wrapper runs its plain
 PyTorch version instead.
 
-The package imports torch, numpy and the standard library only.
+The package imports torch, numpy and the standard library; the AO
+pipeline's host code (PP2S, the oracle SAM, REAL's refinement) also
+imports scipy and Pillow.
 """
 
 __version__ = "0.1.0"

@@ -196,6 +196,11 @@ class Trainer(TrainerBase):
     def train_step(self, batch) -> Dict[str, torch.Tensor]:
         """One optimizer step on a collated batch; returns the metrics as
         device tensors."""
+        return self._step(batch)[0]
+
+    def _step(self, batch):
+        """One optimizer step; returns (the metrics as device tensors, the
+        step's logits (B, N, C), detached)."""
         self.model.train()
         coord, feat, mask, segment = self._to_device(batch)
         logits = self.model(coord, feat, mask)
@@ -206,8 +211,9 @@ class Trainer(TrainerBase):
             [p.grad for p in self.model.parameters() if p.grad is not None])
         self.optimizer.step()
         self.scheduler.step()
-        return dict(loss=loss.detach(), grad_norm=grad_norm,
-                    pool_overflow=self.model.backbone.pool_overflow)
+        metrics = dict(loss=loss.detach(), grad_norm=grad_norm,
+                       pool_overflow=self.model.backbone.pool_overflow)
+        return metrics, logits.detach()
 
     def finished(self) -> bool:
         return self.step >= self.max_steps
@@ -229,7 +235,11 @@ class Trainer(TrainerBase):
 
     def run_step(self, batch):
         lr = self.optimizer.param_groups[0]["lr"]
-        metrics = self.train_step(batch)
+        self._record(batch, self.train_step(batch), lr)
+
+    def _record(self, batch, metrics, lr):
+        """The step's metrics (read back: waits for the step) into
+        ``comm_info`` and ``history``."""
         loss_dict = {k: float(v) for k, v in metrics.items()}  # waits for the step
         self.comm_info["loss_dict"] = loss_dict
         self.step += 1

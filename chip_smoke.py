@@ -40,10 +40,28 @@ PT-v2m2 runs at the full width of configs/s3dis/semseg-pt-v2m2-0-base.py.
    be finite and both checkpoints must exist. Prints the step seconds, the
    data wait, the peak device memory and the validation line, then times
    and traces one more step with torch.profiler.
+6. AO phase: PP2S over the three train rooms through the port's CLI
+   (ao_tpu_torch.tools.pp2s) in oracle mode, render_frames at 512^2 with
+   6 + 2 views, then all (oracle id maps, bridges with the proxy's 0.02 m
+   depth test, weak labels, basket, SAM labels); every stage must write
+   its files for every room. Then a REAL run of 3 steps at B=3 x 81920
+   through ao_tpu_torch.tools.train_real with the options of
+   configs/s3dis/semseg-pt-v2m2-1-proxy-real.py; its cut epoch ends with
+   the evaluation and one refinement round over oracle masks. The basket
+   must hold finite logits at exactly the sampled rows, prompts must be
+   mined, masks decoded, label files rewritten, the sam_label metrics
+   finite and the basket reset; a REAL step must launch each kernel as
+   often as a train step. Then the neural SAM at ViT-H width, built on
+   the card from its seed: set_image of two rendered frames (timed after
+   a warm-up) and one refinement of a room with it (predict_batch at the
+   loop's bucketed shapes); embeddings, IoU predictions and mask logits
+   must be finite. Prints the stages' seconds, the labels' mIoU before and
+   after, the step seconds with and without the basket fill, the
+   refinement's seconds, SAM's ms and the peak memory.
 
-Each main path (the slice phase, the train phase) runs with every
-kernel's launch count set to 0 just before it and read just after, and
-fails if one of its kernels never launched. The last three lines are the
+Each main path (the slice phase, the train phase, the REAL run) runs
+with every kernel's launch count set to 0 just before it and read just
+after, and fails if one of its kernels never launched. The last three lines are the
 card, the kernels' JSON record and {"ok": true, "device": {...}}.
 """
 
@@ -64,6 +82,8 @@ import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 BASE_CONFIG = os.path.join(ROOT, "configs", "s3dis", "semseg-pt-v2m2-0-base.py")
+REAL_CONFIG = os.path.join(ROOT, "configs", "s3dis",
+                           "semseg-pt-v2m2-1-proxy-real.py")
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W power limit)
 HBM_BYTES_PER_S = 3.35e12
@@ -160,9 +180,11 @@ def make_room(seed, size=(4.8, 4.0, 2.6), spacing=0.034):
     """One room in the S3DIS scene format: a shell (floor, ceiling, walls
     with a door, a window and a board), a beam, a column and box
     furniture, all placed relative to the room's size; coord (n, 3) f32,
-    color (n, 3) in 0..255, semantic_gt (n, 1) in 0..12. At the default
-    size the 0.04 m test voxelisation keeps about 80k points per
-    fragment."""
+    color (n, 3) in 0..255, semantic_gt (n, 1) in 0..12, instance_gt (n, 1):
+    one id per part (each plane of the shell, each box, the clutter) and
+    one per wall fixture (door, window, board), drawing nothing from the
+    random generator. At the default size the 0.04 m test voxelisation
+    keeps about 80k points per fragment."""
     rng = np.random.default_rng(seed)
     X, Y, Z = size
     parts = []
@@ -176,12 +198,13 @@ def make_room(seed, size=(4.8, 4.0, 2.6), spacing=0.034):
 
     add(_plane(rng, (0, 0, 0), (X, 0, 0), (0, Y, 0), spacing), 1)  # floor
     add(_plane(rng, (0, 0, Z), (X, 0, 0), (0, Y, 0), spacing), 0)  # ceiling
-    walls = np.concatenate([
+    wall_planes = [
         _plane(rng, (0, 0, 0), (X, 0, 0), (0, 0, Z), spacing),
         _plane(rng, (0, Y, 0), (X, 0, 0), (0, 0, Z), spacing),
         _plane(rng, (0, 0, 0), (0, Y, 0), (0, 0, Z), spacing),
         _plane(rng, (X, 0, 0), (0, Y, 0), (0, 0, Z), spacing),
-    ])
+    ]
+    walls = np.concatenate(wall_planes)
     wl = np.full(len(walls), 2, np.int64)
     x, y, z = (walls / np.asarray(size)).T
     eps = 1e-4
@@ -203,8 +226,17 @@ def make_room(seed, size=(4.8, 4.0, 2.6), spacing=0.034):
     coord = np.concatenate([p for p, _ in parts]).astype(np.float32)
     label = np.concatenate([lab for _, lab in parts])
     color = np.clip(_COLORS[label] + rng.normal(0, 12, (len(label), 3)), 0, 255)
+    # instance ids: parts in order, the walls' part split by plane, then
+    # the door, window and board (their own ids past the parts')
+    sizes = [len(p) for p, _ in parts]
+    wall_part = 2  # floor, ceiling, walls, ...
+    sizes[wall_part:wall_part + 1] = [len(w) for w in wall_planes]
+    instance = np.repeat(np.arange(len(sizes)), sizes)
+    for i, fixture in enumerate((6, 5, 11)):
+        instance[label == fixture] = len(sizes) + i
     return dict(coord=coord, color=color.astype(np.float32),
-                semantic_gt=label.reshape(-1, 1))
+                semantic_gt=label.reshape(-1, 1),
+                instance_gt=instance.reshape(-1, 1))
 
 
 # ---------------------------------------------------------------------------
@@ -874,6 +906,256 @@ def profile_train_step(trainer, batch):
                 port_kernels=_by_kernel(events))
 
 
+# ---------------------------------------------------------------------------
+# AO phase: PP2S, REAL, the neural SAM
+# ---------------------------------------------------------------------------
+
+
+def check_pp2s(workdir, rooms, n_frames):
+    """Every PP2S stage wrote its files for every ``(area, room)``: the
+    rendered rgb / depth / pose and the frame list, the oracle id maps, at
+    least one bridge, the weak labels, the SAM labels and the room's row
+    of the basket."""
+    from ao_tpu_torch.pp2s import load_basket
+
+    basket = load_basket(os.path.join(workdir, "basket_s3dis.pickle"))
+    for area, room in rooms:
+        data = os.path.join(workdir, "S2D3D", area, "data")
+        frames = [f"camera_render{v:02d}_{room}_rgb" for v in range(n_frames)]
+        want = [os.path.join(data, "rgb", f + ".png") for f in frames]
+        want += [os.path.join(data, "depth", f.replace("rgb", "depth") + ".png")
+                 for f in frames]
+        want += [os.path.join(data, "pose", f.replace("rgb", "pose") + ".json")
+                 for f in frames]
+        want += [os.path.join(workdir, "embeddings", area, room, f + ".npz")
+                 for f in frames]
+        want += [os.path.join(workdir, "used_imgs", area, room + ".txt")]
+        want += [os.path.join(workdir, d, area, room + ".npy")
+                 for d in ("weak_labels", "sam_labels")]
+        missing = [w for w in want if not os.path.isfile(w)]
+        bridges = os.path.join(workdir, "bridge", area, room)
+        if not os.path.isdir(bridges) or not os.listdir(bridges):
+            missing.append(bridges + "/*.npy")
+        if f"{area}/{room}" not in basket:
+            missing.append(f"basket row {area}/{room}")
+        if missing:
+            raise RuntimeError(f"PP2S wrote no {missing}")
+
+
+def real_setup(rooms, val_room, workdir=None, size=512, views=6,
+               batch_size=3, max_steps=3, workers=3, seed=0, device="cuda"):
+    """Write the rooms (from :func:`make_room`) as S3DIS train scenes, one
+    area each, and ``val_room`` as the validation scene (as
+    :func:`train_setup`), then run the port's PP2S CLI on the train rooms
+    in oracle mode: render_frames (``views`` ring views and 2 vertical ones
+    of ``size``^2 pixels), then all, with the proxy's 0.02 m depth test.
+    Returns (workdir, the REAL entry point's KEY=VALUE overrides, the
+    stages' seconds, the PP2S labels' metrics)."""
+    from ao_tpu_torch.engines.label_eval import get_miou
+    from ao_tpu_torch.tools.pp2s import main as pp2s_main
+
+    workdir, options = train_setup(rooms, workdir, batch_size, max_steps,
+                                   workers, seed, val_room)
+    areas = [f"Area_{i + 1}" for i in range(len(rooms))]
+    common = ["--data-root", workdir, "--sam-oracle", "--frame-size",
+              str(size), "--bridge-depth-thresh", "0.02", "--areas", *areas,
+              "--device", str(device)]
+    seconds = dict(pp2s_main(common + ["--stage", "render_frames",
+                                       "--render-views", str(views)]).stage_seconds)
+    seconds.update(pp2s_main(common + ["--stage", "all"]).stage_seconds)
+    check_pp2s(workdir, [(a, f"office_{i}") for i, a in enumerate(areas)],
+               views + 2)
+    labels = get_miou(os.path.join(workdir, "sam_labels"),
+                      os.path.join(workdir, "s3dis"), 13, areas=areas)
+    # random weights: their top1 - top2 confidence rarely passes the
+    # config's 0.7, so a low bar lets prompts be mined and masks decoded
+    # (as the JAX package's REAL test does with 0.05)
+    real = dict(initial_labels=os.path.join(workdir, "sam_labels"),
+                basket=os.path.join(workdir, "basket_s3dis.pickle"),
+                data_root=os.path.join(workdir, "s3dis"),
+                bridge_root=os.path.join(workdir, "bridge"),
+                embedding_root=os.path.join(workdir, "embeddings"),
+                frame_size=(size, size), conf_thresh=0.05,
+                eval_areas=tuple(areas))
+    options = options + ["weight=None"] + [
+        f"real.{k}={v!r}" for k, v in real.items()]
+    return workdir, options, seconds, labels
+
+
+def run_real(device, options):
+    """REAL training through the port's entry point. Each refinement
+    round's basket is recorded before refinement (and the reset), and the
+    rows each step sampled, by scene. Returns (trainer, record)."""
+    from ao_tpu_torch.engines import train_real
+    from ao_tpu_torch.tools.train_real import main as real_main
+
+    cls = train_real.RealTrainer
+    record = dict(sampled={}, baskets=[], shapes=[])
+    fill, refine = cls.fill_basket, cls.refine_labels
+
+    def fill_rec(self, batch, logits):
+        fill(self, batch, logits)
+        record["shapes"].append(tuple(batch["mask"].shape))
+        for b, name in enumerate(batch["extras"]["scene_id"]):
+            rows = batch["instance"][b][batch["mask"][b]].numpy()
+            record["sampled"].setdefault(self._scene_key(name), []).append(rows)
+
+    def refine_rec(self, basket):
+        record["baskets"].append({k: v.copy() for k, v in basket.items()})
+        refine(self, basket)
+
+    cls.fill_basket, cls.refine_labels = fill_rec, refine_rec
+    try:
+        trainer = real_main(["--config-file", REAL_CONFIG,
+                             "--device", str(device), "--options", *options])
+    finally:
+        cls.fill_basket, cls.refine_labels = fill, refine
+    return trainer, record
+
+
+def check_real(trainer, record, initial_labels):
+    """One refinement round ran: the basket held finite logits at exactly
+    the rows the steps sampled, prompts were mined, masks decoded and label
+    files rewritten, the sam_label metrics are finite, and the basket was
+    reset. Returns the round's record."""
+    if len(trainer.refine_history) != 1 or len(record["baskets"]) != 1:
+        raise RuntimeError(f"{len(trainer.refine_history)} refinement rounds, "
+                           f"expected 1")
+    basket = record["baskets"][0]
+    if not record["sampled"]:
+        raise RuntimeError("no step filled the basket")
+    for key, logits in basket.items():
+        filled = np.where(logits[:, 0] != -100)[0]
+        rows = np.unique(np.concatenate(record["sampled"].get(key, [[]])))
+        if not np.array_equal(filled, rows.astype(filled.dtype)):
+            raise RuntimeError(f"basket {key}: {len(filled)} rows filled, "
+                               f"{len(rows)} sampled")
+        if not np.isfinite(logits[filled]).all():
+            raise RuntimeError(f"basket {key}: non-finite logits")
+    r = trainer.refine_history[0]
+    if r["prompts"] <= 0 or r["masks"] <= 0 or r["num_updated"] <= 0:
+        raise RuntimeError(f"refinement mined, decoded or updated nothing: {r}")
+    rewritten = 0
+    for d, _, names in os.walk(initial_labels):
+        for n in names:
+            rel = os.path.relpath(os.path.join(d, n), initial_labels)
+            rewritten += not np.array_equal(
+                np.load(os.path.join(d, n)),
+                np.load(os.path.join(trainer.labels_dir, rel)))
+    if rewritten == 0:
+        raise RuntimeError("no label file was rewritten")
+    if not all(np.isfinite(r[k]) for k in ("mIoU", "mPre", "mRec",
+                                           "prompt_accuracy")):
+        raise RuntimeError(f"non-finite sam_label metrics {r}")
+    if not all((v == -100).all() for v in trainer.basket.values()):
+        raise RuntimeError("the basket was not reset after refinement")
+    return dict(r, labels_rewritten=rewritten)
+
+
+def _sync(device):
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _timed(fn, device, out):
+    """``fn`` wrapped to append its milliseconds (CUDA events on the card,
+    the host clock elsewhere) to ``out``."""
+    def run(*args, **kw):
+        if torch.device(device).type == "cuda":
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            res = fn(*args, **kw)
+            end.record()
+            end.synchronize()
+            out.append(start.elapsed_time(end))
+        else:
+            t = time.perf_counter()
+            res = fn(*args, **kw)
+            out.append((time.perf_counter() - t) * 1e3)
+        return res
+    return run
+
+
+def run_sam(workdir, basket, device, model_type="vit_h", size=512):
+    """The neural SAM of ``model_type``, built on the device from its seed:
+    ``set_image`` of two rendered frames of the room with the most
+    logits in ``basket`` (timed after a warm-up), then one refinement of
+    that room (``_refine_one_scene``) with the neural predictor on those
+    embeddings and the room's logits, which drives ``predict_batch`` at the
+    loop's bucketed shapes. Fails on non-finite embeddings, IoU
+    predictions or mask logits. Returns a summary."""
+    import shutil
+
+    from PIL import Image
+
+    from ao_tpu_torch.engines.train_real import _refine_one_scene
+    from ao_tpu_torch.models.sam import SamConfig, SamPredictor
+
+    key = max(basket, key=lambda k: int((basket[k][:, 0] != -100).sum()))
+    area, room = key.split("/")
+    predictor = SamPredictor(getattr(SamConfig, model_type)(), device=device)
+    t = time.perf_counter()
+    model = predictor._ensure_model()
+    _sync(device)
+    build_s = time.perf_counter() - t
+    n_params = sum(p.numel() for p in model.parameters())
+    rgb_dir = os.path.join(workdir, "S2D3D", area, "data", "rgb")
+    names = sorted(f for f in os.listdir(rgb_dir) if f"_{room}_" in f)[:2]
+    images = [np.asarray(Image.open(os.path.join(rgb_dir, n)))[..., :3]
+              for n in names]
+    predictor.set_image(images[0])  # warm-up
+    _sync(device)
+    embed_ms = []
+    set_image = _timed(predictor.set_image, device, embed_ms)
+    emb_root = os.path.join(workdir, "embeddings_sam")
+    os.makedirs(os.path.join(emb_root, area, room), exist_ok=True)
+    for name, image in zip(names, images):
+        feats = set_image(image)
+        if not torch.isfinite(feats).all():
+            raise RuntimeError(f"non-finite SAM embeddings of {name}")
+        np.savez(os.path.join(emb_root, area, room,
+                              os.path.splitext(name)[0] + ".npz"),
+                 features=feats[0].cpu().numpy())
+
+    decode_ms, call_ms, shapes = [], [], []
+    decode = predictor._decode
+
+    def checked_decode(features, pts, lbl):
+        low_res, iou = decode(features, pts, lbl)
+        shapes.append(tuple(pts.shape[:2]))
+        if not (torch.isfinite(low_res).all() and torch.isfinite(iou).all()):
+            raise RuntimeError("non-finite SAM mask logits or IoU predictions")
+        return low_res, iou
+
+    predictor._decode = _timed(checked_decode, device, decode_ms)
+    predictor.predict_batch = _timed(predictor.predict_batch, device, call_ms)
+    labels_dir = os.path.join(workdir, "sam_labels_sam")
+    shutil.rmtree(labels_dir, ignore_errors=True)
+    shutil.copytree(os.path.join(workdir, "sam_labels"), labels_dir)
+    cfg = dict(labels_dir=labels_dir, data_root=os.path.join(workdir, "s3dis"),
+               bridge_root=os.path.join(workdir, "bridge"),
+               embedding_root=emb_root, frame_size=(size, size),
+               grid_scale=0.5, prompt_search="grid", conf_thresh=0.05,
+               radius_scale=0.33, sam_frame_batch=4,
+               num_classes=13, vote_min_fill=1, vote_min_overwrite=1)
+    if torch.device(device).type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    updated, accuracy, prompts, masks = _refine_one_scene(
+        (cfg, predictor, key, basket[key]))
+    refine_s = time.perf_counter() - t
+    if not decode_ms:
+        raise RuntimeError("the refinement decoded no SAM masks")
+    peak = (torch.cuda.max_memory_allocated() / 2**30
+            if torch.device(device).type == "cuda" else None)
+    return dict(model=model_type, scene=key, params=n_params, build_s=build_s,
+                frames=len(names), set_image_ms=embed_ms,
+                decode_ms=decode_ms, predict_batch_ms=call_ms,
+                shapes_FP=shapes, prompts=prompts, masks=masks,
+                updated=updated, prompt_accuracy=accuracy,
+                refine_s=refine_s, peak_gib=peak)
+
+
 def _wrappers():
     from ao_tpu_torch.ops import gva, knn_spatial
 
@@ -882,6 +1164,38 @@ def _wrappers():
             "gva_eval": gva.gva_eval,
             "gva_pos": gva.gva_pos, "gva_stats": gva.gva_stats,
             "gva_bwd": gva.gva_bwd}
+
+
+class StepLaunches:
+    """Counts each kernel's launches inside train steps only (the trainer's
+    ``_step``: forward, loss, backward, optimizer), not in evaluations."""
+
+    def __enter__(self):
+        from ao_tpu_torch.engines.train import Trainer
+
+        self.total = {n: 0 for n in KERNEL_INFO}
+        self.steps = 0
+        self._orig = Trainer._step
+        wrappers = _wrappers()
+
+        def step(trainer, batch):
+            before = {n: w.launches for n, w in wrappers.items()}
+            out = self._orig(trainer, batch)
+            for n, w in wrappers.items():
+                self.total[n] += w.launches - before[n]
+            self.steps += 1
+            return out
+
+        Trainer._step = step
+        return self
+
+    def __exit__(self, *exc):
+        from ao_tpu_torch.engines.train import Trainer
+
+        Trainer._step = self._orig
+
+    def per_step(self):
+        return {n: v / max(self.steps, 1) for n, v in self.total.items()}
 
 
 def _drive(path_kernels, fn):
@@ -897,6 +1211,71 @@ def _drive(path_kernels, fn):
         raise RuntimeError(f"kernels of the path never launched: {missing} "
                            f"({launches})")
     return out, launches
+
+
+def ao_phase(device, seed, t0, rooms, val_room, train_per_step, card=""):
+    """PP2S over the train rooms (oracle mode, 512^2 frames, 6 + 2 views),
+    a REAL run of 3 steps at B=3 x 81920 through the port's
+    entry point (its cut epoch ends with the evaluation and one refinement
+    round), driven with the launch counts set to 0 just before it and read
+    just after, then the neural SAM at ViT-H width. Returns (the REAL run's
+    launches, its launches per train step)."""
+    workdir, options, seconds, labels = real_setup(
+        rooms, val_room, max_steps=3, seed=seed, device=device)
+    print(f"pp2s: {len(rooms)} rooms, stage seconds "
+          f"{ {k: round(v, 3) for k, v in seconds.items()} }; labels mIoU "
+          f"{labels['mIoU']:.4f} mPre {labels['mPrecision']:.4f} mRec "
+          f"{labels['mRecall']:.4f}", flush=True)
+    log(t0, "PP2S done")
+
+    torch.cuda.reset_peak_memory_stats()
+    with StepLaunches() as steps:
+        (trainer, record), launches = _drive(
+            TRAIN_KERNELS, lambda: run_real(device, options))
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    r = check_real(trainer, record, os.path.join(workdir, "sam_labels"))
+    hist = trainer.history
+    step_s = [r_["step_seconds"] for r_ in hist]
+    basket_s = [r_["basket_seconds"] for r_ in hist]
+    print(f"real: (B, N) {sorted(set(record['shapes']))} "
+          f"points/step {[r_['points'] for r_ in hist]}; losses "
+          f"{[round(r_['loss'], 5) for r_ in hist]}", flush=True)
+    print(f"real: step seconds {[round(x, 4) for x in step_s]}, of which "
+          f"basket fill {[round(x, 4) for x in basket_s]} (median of steps "
+          f"2-{len(hist)}: {np.median(step_s[1:]):.4f} s with, "
+          f"{np.median(np.subtract(step_s, basket_s)[1:]):.4f} s without); "
+          f"peak memory {peak_gb:.2f} GiB", flush=True)
+    print(f"real: refinement {r['seconds']:.2f} s: prompts {r['prompts']}, "
+          f"masks {r['masks']}, updated {r['num_updated']} points in "
+          f"{r['labels_rewritten']} label files, prompt accuracy "
+          f"{r['prompt_accuracy']:.4f}; label mIoU {labels['mIoU']:.4f} -> "
+          f"{r['mIoU']:.4f} mPre {labels['mPrecision']:.4f} -> "
+          f"{r['mPre']:.4f} (random weights)", flush=True)
+    per_step = steps.per_step()
+    print(f"real: launches {launches} ({len(hist)} steps); per train step "
+          f"{per_step} (train phase {train_per_step}); card {card}",
+          flush=True)
+    if per_step != train_per_step:
+        raise RuntimeError("a REAL step launched the kernels otherwise than "
+                           "a train step")
+    basket = record["baskets"][0]
+    del trainer, record
+    torch.cuda.empty_cache()
+    log(t0, "REAL phase done")
+
+    sam = run_sam(workdir, basket, device)
+    print(f"sam: {sam['model']} ({sam['params']} parameters, built on the "
+          f"card in {sam['build_s']:.2f} s): set_image ms per frame "
+          f"{[round(x, 2) for x in sam['set_image_ms']]}; refinement of "
+          f"{sam['scene']} in {sam['refine_s']:.2f} s: (F, P) "
+          f"{sam['shapes_FP']}, decoder ms {[round(x, 2) for x in sam['decode_ms']]}"
+          f", predict_batch ms {[round(x, 2) for x in sam['predict_batch_ms']]};"
+          f" prompts {sam['prompts']}, masks {sam['masks']}, updated "
+          f"{sam['updated']}; peak memory {sam['peak_gib']:.2f} GiB; card "
+          f"{card}", flush=True)
+    torch.cuda.empty_cache()
+    log(t0, "SAM phase done")
+    return launches, per_step
 
 
 def run(device, seed, t0, room_size=(4.8, 4.0, 2.6), train_steps=5, card="",
@@ -956,8 +1335,9 @@ def run(device, seed, t0, room_size=(4.8, 4.0, 2.6), train_steps=5, card="",
     log(t0, "train kernel phase done")
 
     torch.cuda.reset_peak_memory_stats()
-    trainer, train_launches = _drive(TRAIN_KERNELS,
-                                     lambda: run_train(device, options))
+    with StepLaunches() as train_steps_count:
+        trainer, train_launches = _drive(TRAIN_KERNELS,
+                                         lambda: run_train(device, options))
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
     changed, n_params = check_train(trainer, train_steps)
     val = check_val(trainer)
@@ -985,16 +1365,21 @@ def run(device, seed, t0, room_size=(4.8, 4.0, 2.6), train_steps=5, card="",
     torch.cuda.empty_cache()
     log(t0, "train-step profile done")
 
+    real_launches, real_per_step = ao_phase(device, seed, t0, rooms, room,
+                                            train_steps_count.per_step(), card)
+
     # one entry per kernel: its heaviest captured shape
     kernels = []
     for name, info in KERNEL_INFO.items():
         row = max((r for r in rows if r["name"] == name),
                   key=lambda r: r["bound_ms"])
-        by_path = {"test": slice_launches[name], "train": train_launches[name]}
+        by_path = {"test": slice_launches[name], "train": train_launches[name],
+                   "real": real_launches[name]}
         kernels.append(dict(
             name=name, **info, launches=sum(by_path.values()),
             launches_by_path=by_path,
             launches_per_train_step=train_launches[name] / train_steps,
+            launches_per_real_step=real_per_step[name],
             max_abs_err=row["max_abs_err"], ms=row["ms"],
             device_ms=row["device_ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
             bound_by=row["bound_by"], library_ms=row["library_ms"],

@@ -1,9 +1,11 @@
 """ao_tpu_torch and chip_smoke.py stand alone: they import neither JAX nor
 ao_tpu (nor flax or optax), build no extension through
-torch.utils.cpp_extension, and the smoke script's slice phase and train
+torch.utils.cpp_extension, and the smoke script's slice phase, train
 phase (the hook-driven trainer, with its evaluation of a validation room
-and its checkpoints) run end to end (on the CPU, at a tiny size) with JAX
-and ao_tpu made unimportable."""
+and its checkpoints) and AO phase (PP2S in oracle mode, a REAL run whose
+epoch ends with a refinement round over oracle masks in a fork pool, and
+the neural SAM's embeddings and decodes at SamConfig.tiny()) run end to
+end (on the CPU, at a tiny size) with JAX and ao_tpu made unimportable."""
 
 import os
 import re
@@ -35,9 +37,21 @@ trainer = chip_smoke.run_train("cpu", options + [
     f"model.backbone={backbone!r}", "pad_multiple=512"])
 chip_smoke.check_train(trainer, 1)
 chip_smoke.check_val(trainer)
+ao_rooms = [chip_smoke.make_room(s, (1.2, 1.0, 0.8), 0.05) for s in (1, 2, 3)]
+workdir, options, seconds, labels = chip_smoke.real_setup(
+    ao_rooms[:2], ao_rooms[2], size=64, views=2, batch_size=2, max_steps=1,
+    workers=0, device="cpu")
+real, record = chip_smoke.run_real("cpu", options + [
+    f"model.backbone={backbone!r}", "pad_multiple=512",
+    "real.refine_workers=2"])
+chip_smoke.check_real(real, record, workdir + "/sam_labels")
+sam = chip_smoke.run_sam(workdir, record["baskets"][0], "cpu",
+                         model_type="tiny", size=64)
+assert sam["masks"] > 0 and len(sam["set_image_ms"]) == 2
 assert not any(k == "jax" or k.startswith(("jax.", "ao_tpu.", "flax", "optax"))
                for k, v in sys.modules.items() if v is not None)
-print("ISOLATED", res["scenes"][0]["fragments"], trainer.history[0]["loss"])
+print("ISOLATED", res["scenes"][0]["fragments"], trainer.history[0]["loss"],
+      real.refine_history[0]["num_updated"], sam["prompts"])
 """
 
 
@@ -63,7 +77,13 @@ def test_port_sources_name_no_jax_no_ao_tpu_no_cpp_extension():
     for src in ("gva_pos.cu", "gva_stats.cu", "gva_bwd.cu", "gva_tile.cuh"):
         assert f"ao_tpu_torch/csrc/{src}" in names
     for mod in ("engines/train.py", "tools/train.py", "models/losses/misc.py",
-                "utils/optimizer.py", "utils/scheduler.py"):
+                "utils/optimizer.py", "utils/scheduler.py",
+                "pp2s/projection.py", "pp2s/labels.py", "pp2s/pipeline.py",
+                "models/sam/oracle.py", "models/sam/modeling.py",
+                "models/sam/convert.py", "models/sam/predictor.py",
+                "engines/label_eval.py", "engines/train_real.py",
+                "utils/comm.py", "tools/pp2s.py", "tools/train_pp2s.py",
+                "tools/train_real.py", "tools/evaluate_labels.py"):
         assert f"ao_tpu_torch/{mod}" in names
     hits = []
     for f in files:
