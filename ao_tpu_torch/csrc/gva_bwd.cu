@@ -7,6 +7,7 @@
 //   ops/pallas/gva_fused.py _bwd_vjp -> _bwd_kernel + _bwd_stats_kernel
 //       (pallas_call in _run at :419) -- pre-gathered rows, with a second
 //       pass for that gradient. Here both call modes take the moments.
+// Built for C = 48, 96, 192, 384 and 512 (G = C / 8, S = 16).
 // Per tile of TQ queries and their S neighbours it recomputes the forward of
 // gva_eval.cu with the folded batch-statistic parameters (A, cA, Wp2, bp2,
 // W1f, b1f, W2, b2), then with dout (B, Nq, C) and d = dout * mrow:
@@ -78,11 +79,16 @@
 
 namespace {
 
+// the least power of two >= n
+constexpr int pow2_ceil(int n) { return n <= 1 ? 1 : 2 * pow2_ceil((n + 1) / 2); }
+
 template <int C>
 struct Bwd {
   using T = Tile<C>;
   static constexpr int G = T::G, R = T::R, ld = T::ldc, ldg = T::ldg;
-  static constexpr int Mp = (G + 1 + 15) / 16 * 16;  // rows of the moment
+  // rows of the moment: 1 + G in 16-row strips, a power of two of them so
+  // that the sums pass' warps split a tile evenly (128 at C = 512)
+  static constexpr int Mp = 16 * pow2_ceil((G + 1 + 15) / 16);
   static constexpr int NWW = C == 48 ? 2 : 4;        // strip of pe1^T dpeb
   static constexpr int NREG = (G * G + G + kThreads - 1) / kThreads;
   // words of an edge's mask of relation channels near a bf16 rounding
@@ -287,8 +293,9 @@ __global__ void __launch_bounds__(kThreads, C <= 96 ? 2 : 1) gva_bwd_kernel(
         });
     __syncthreads();
 
-    // 3: t = (bf16(relation) @ bf16(W1f) + b1f) * valid (tensor cores)
-    t_rows<T>(rr, w1t, b1f, vld, tt);
+    // 3: t = (bf16(relation) @ bf16(W1f) + b1f) * valid (tensor cores; at
+    //    C = 512, R = 32: the G columns in four strips, one per warp)
+    t_rows<T, G, true, (C > 384 ? kWarps / (R / 16) : 1)>(rr, w1t, b1f, vld, tt);
     __syncthreads();
 
     // 3b: exact gates. The plain version's products are FMA chains in k
@@ -663,35 +670,38 @@ __global__ void __launch_bounds__(kThreads, C <= 96 ? 2 : 1) gva_bwd_kernel(
 // The sums pass (C >= 192): dWp2 = sum_e bf16(pe1)^T bf16(dpeb) and the
 // (1+G, 6C) moment over every edge of the call, from the scratch rows K6
 // wrote, as split-K tensor-core products. A block takes one output tile
-// (64 or 128 x 192 of dWp2, or Mp x 192 of the moment) and one range of
-// edges, streams it through shared memory in stages of kKE edges (cp.async,
-// two stages; the moment's gate operands [pe1 > 0] * (1, x, y, z) are built
-// in registers from the staged pe1 columns) and adds its f32 tile into
-// partial row 0 once.
+// (64 or 128 x BN of dWp2, or Mp x BN of the moment; BN = 192, or 128 at
+// C = 512) and one range of edges, streams it through shared memory in
+// stages of kKE edges (cp.async, two stages; the moment's gate operands
+// [pe1 > 0] * (1, x, y, z) are built in registers from the staged pe1
+// columns) and adds its f32 tile into partial row 0 once.
 constexpr int kKE = 64;   // edges per stage
-constexpr int kBN = 192;  // output columns of a tile
 
 template <int C>
 struct Sums {
   using K = Bwd<C>;
+  // output columns of a tile: 192, or 128 where 192 does not divide C
+  static constexpr int BN = C % 192 == 0 ? 192 : 128;
   static constexpr int BMW = C % 128 == 0 ? 128 : 64;  // rows of a dWp2 tile
-  static constexpr int J1 = (C / BMW) * (C / kBN);     // dWp2 tiles
-  static constexpr int J = J1 + 6 * C / kBN;       // and the moment's
-  static constexpr size_t smem = sizeof(bf16) * 2 * kKE * ((BMW + 8) + (kBN + 8) + 8);
+  static_assert(K::Mp <= BMW, "the moment's tile fits the staged rows");
+  static constexpr int J1 = (C / BMW) * (C / BN);      // dWp2 tiles
+  static constexpr int J = J1 + 6 * C / BN;            // and the moment's
+  static constexpr size_t smem = sizeof(bf16) * 2 * kKE * ((BMW + 8) + (BN + 8) + 8);
 };
 
 // one output tile: A = scratch columns [aoff, aoff + BM) transposed; B =
-// columns [boff, boff + kBN) (gate < 0), or [pe1 > 0] * m built from those
+// columns [boff, boff + BN) (gate < 0), or [pe1 > 0] * m built from those
 // columns (pe1's) and the edge's m = 1 (gate = 3) or bf16 position x, y, z
 // (gate = 0, 1, 2), as the main kernel builds the moment's operands
-template <int C, int BM>
+template <int C, int BM, int BN>
 __device__ __forceinline__ void sums_tile(const bf16* __restrict__ scr, size_t e_begin,
                                           size_t e_end, int aoff, int boff, int gate,
                                           float* out, int ldo, int rows, bf16* smem) {
   using K = Bwd<C>;
-  constexpr int W = K::W, lda = BM + 8, ldb = kBN + 8;
-  constexpr int MT = BM / 16, NW = 3 * MT;  // one 16 x 8NW strip per warp
-  static_assert(MT * (kBN / 8 / NW) == kWarps && NW % 2 == 0, "one strip per warp");
+  constexpr int W = K::W, lda = BM + 8, ldb = BN + 8;
+  // one 16 x 8NW strip per warp
+  constexpr int MT = BM / 16, NW = BN / 8 * MT / kWarps;
+  static_assert(MT * (BN / 8 / NW) == kWarps && NW % 2 == 0, "one strip per warp");
   bf16* As = smem;                  // 2 x kKE x lda
   bf16* Bs = As + 2 * kKE * lda;    // 2 x kKE x ldb
   bf16* Ps = Bs + 2 * kKE * ldb;    // 2 x kKE x 8: bf16 positions
@@ -709,7 +719,7 @@ __device__ __forceinline__ void sums_tile(const bf16* __restrict__ scr, size_t e
   auto load = [&](int st) {
     const size_t e0 = e_begin + (size_t)st * kKE;
     stage(As + (st & 1) * kKE * lda, lda, BM, aoff, e0);
-    stage(Bs + (st & 1) * kKE * ldb, ldb, kBN, boff, e0);
+    stage(Bs + (st & 1) * kKE * ldb, ldb, BN, boff, e0);
     if (gate >= 0) stage(Ps + (st & 1) * kKE * 8, 8, 8, K::oX, e0);
     cp_async_commit();
   };
@@ -781,13 +791,15 @@ __global__ void __launch_bounds__(kThreads) gva_bwd_sums_kernel(
   if (job < S::J1) {
     constexpr int BM = S::BMW;
     const int mi = job % (C / BM), ni = job / (C / BM);
-    sums_tile<C, BM>(scr, e_begin, e_end, K::oP + mi * BM, K::oD + ni * kBN, -1,
-                     p_dWp2 + (size_t)mi * BM * C + ni * kBN, C, BM, smem);
+    sums_tile<C, BM, S::BN>(scr, e_begin, e_end, K::oP + mi * BM, K::oD + ni * S::BN,
+                            -1, p_dWp2 + (size_t)mi * BM * C + ni * S::BN, C, BM,
+                            smem);
   } else {
-    const int col0 = (job - S::J1) * kBN, blk = col0 / C, c0 = col0 - blk * C;
-    sums_tile<C, K::Mp>(scr, e_begin, e_end, K::oT, (blk == 0 ? K::oR : K::oP) + c0,
-                        blk < 2 ? -1 : (blk == 2 ? 3 : blk - 3), p_mom + col0, 6 * C,
-                        G + 1, smem);
+    const int col0 = (job - S::J1) * S::BN, blk = col0 / C, c0 = col0 - blk * C;
+    sums_tile<C, K::Mp, S::BN>(scr, e_begin, e_end, K::oT,
+                               (blk == 0 ? K::oR : K::oP) + c0,
+                               blk < 2 ? -1 : (blk == 2 ? 3 : blk - 3), p_mom + col0,
+                               6 * C, G + 1, smem);
   }
 }
 
@@ -842,8 +854,9 @@ int bwd_occupancy(int* blocks) {
 
 }  // namespace
 
-// The instances: S = 16 and group width C / G = 8 at C = 48, 96, 192, 384,
-// every stage of the S3DIS config.
+// The instances: S = 16 and group width C / G = 8 at C = 48, 96, 192, 384
+// (every stage of the S3DIS config) and 512 (the ScanNet config's deepest
+// encoder stage, G = 64).
 extern "C" int gva_bwd_launch(const void* src, const void* qrow,
                               const void* idx, const void* valid,
                               const void* A, const void* cA, const void* Wp2,
@@ -866,6 +879,7 @@ extern "C" int gva_bwd_launch(const void* src, const void* qrow,
     AO_BWD(96)
     AO_BWD(192)
     AO_BWD(384)
+    AO_BWD(512)
   }
 #undef AO_BWD
   return cudaErrorInvalidValue;
@@ -878,6 +892,7 @@ extern "C" int gva_bwd_blocks_per_sm(int C, int* blocks) {
     case 96: return bwd_occupancy<96>(blocks);
     case 192: return bwd_occupancy<192>(blocks);
     case 384: return bwd_occupancy<384>(blocks);
+    case 512: return bwd_occupancy<512>(blocks);
   }
   return cudaErrorInvalidValue;
 }
@@ -888,6 +903,7 @@ extern "C" int gva_bwd_scratch_width(int C) {
   switch (C) {
     case 192: return Bwd<192>::kScratch ? Bwd<192>::W : 0;
     case 384: return Bwd<384>::kScratch ? Bwd<384>::W : 0;
+    case 512: return Bwd<512>::kScratch ? Bwd<512>::W : 0;
   }
   return 0;
 }
@@ -895,6 +911,7 @@ extern "C" int gva_bwd_sums_tiles(int C) {
   switch (C) {
     case 192: return Sums<192>::J;
     case 384: return Sums<384>::J;
+    case 512: return Sums<512>::J;
   }
   return 0;
 }

@@ -35,7 +35,8 @@
 // output is continuous in t, so unlike K6's gates it needs no sums that
 // track the plain version's FMA chains). A persistent grid (as many
 // 256-thread blocks as the SMs hold: 4 at C = 48, 2 at C = 96 and 192, 1
-// at C = 384) walks tiles of R = 128 edges (C <= 96) or 64 (C >= 192).
+// at C = 384 and 512) walks tiles of R = 128 edges (C <= 96), 64 (C = 192,
+// 384) or 32 (C = 512).
 // W1f^T, W2 (f32), A and cA are staged in shared memory once per block,
 // Wp2 too at C <= 96; at C >= 192 Wp2 streams through a cp.async ring of
 // 16-row slabs (at C = 192 a resident Wp2, 77 KB, would leave room for one
@@ -50,8 +51,8 @@
 //         f32 in the warp's registers through t and the tail, so it never
 //         touches shared memory (at C = 384 an f32 tile of it would need
 //         98 KB more than the 227 KB a block may use);
-//   t     (R x G) one 16-row strip per warp too: at C >= 192 two strips
-//         of G / 2 columns per 16 rows;
+//   t     (R x G) one 16-row strip per warp too: at C >= 192 the G columns
+//         in 8 / (R / 16) strips per 16 rows;
 //   tail  in the warp, on its own query and groups, with no block
 //         barrier: w = relu(t) W2 + b2 in f32 on CUDA cores (one lane per
 //         slot and NWC / 2 groups), the masked softmax over the 16 slots
@@ -283,7 +284,7 @@ __global__ void __launch_bounds__(kThreads, C == 48 ? 4 : C <= 192 ? 2 : 1) gva_
     __syncthreads();
 
     // 3: t = (bf16(relation) @ bf16(W1f) + b1f) * valid (tensor cores)
-    t_rows<T, ldt, false, MT == 4 ? 2 : 1>(rr, w1t, b1f, vld, tt);
+    t_rows<T, ldt, false, kWarps / MT>(rr, w1t, b1f, vld, tt);
     __syncthreads();
 
     // 4: the tail, in each warp on its own query and groups. Once every
@@ -391,8 +392,9 @@ int eval_occupancy(int* blocks) {
 
 }  // namespace
 
-// The instances: S = 16 and group width C / G = 8 at C = 48, 96, 192, 384,
-// every stage of the S3DIS config.
+// The instances: S = 16 and group width C / G = 8 at C = 48, 96, 192, 384
+// (every stage of the S3DIS config) and 512 (the ScanNet config's deepest
+// encoder stage, G = 64).
 extern "C" int gva_eval_launch(const void* src, const void* qrow,
                                const void* idx, const void* valid,
                                const void* A, const void* cA, const void* Wp2,
@@ -411,6 +413,7 @@ extern "C" int gva_eval_launch(const void* src, const void* qrow,
     AO_EVAL(96)
     AO_EVAL(192)
     AO_EVAL(384)
+    AO_EVAL(512)
   }
 #undef AO_EVAL
   return cudaErrorInvalidValue;
@@ -423,6 +426,7 @@ extern "C" int gva_eval_blocks_per_sm(int C, int* blocks) {
     case 96: return eval_occupancy<96>(blocks);
     case 192: return eval_occupancy<192>(blocks);
     case 384: return eval_occupancy<384>(blocks);
+    case 512: return eval_occupancy<512>(blocks);
   }
   return cudaErrorInvalidValue;
 }

@@ -22,11 +22,11 @@
 // (the first design) it ran at 0.3-1.3% of the bf16 tensor-core bound.
 // The design: the tile routine of gva_tile.cuh. A persistent grid (as
 // many blocks of 256 threads as the SMs hold) walks tiles of R = 128 edges
-// (C <= 96) or 64 (C >= 192); both products (peb and t) run on tensor
-// cores (mma.sync m16n8k16, bf16 in, f32 accumulate) with Wp2 and W1
-// staged in shared memory once per block (Wp2 streamed by cp.async at
-// C = 384); pe1 and the relation live in shared memory as their bf16
-// roundings. Each block keeps its 2G+13 sums in shared memory and writes
+// (C <= 96), 64 (C = 192, 384) or 32 (C = 512); both products (peb and t)
+// run on tensor cores (mma.sync m16n8k16, bf16 in, f32 accumulate) with
+// Wp2 and W1 staged in shared memory once per block (Wp2 streamed by
+// cp.async at C >= 384); pe1 and the relation live in shared memory as
+// their bf16 roundings. Each block keeps its 2G+13 sums in shared memory and writes
 // them once as its row of partial sums; the wrapper adds the rows in f64,
 // so no f32 atomics chain into one scalar and the count stays exact.
 
@@ -112,8 +112,9 @@ __global__ void __launch_bounds__(kThreads) gva_stats_kernel(
         });
     __syncthreads();
 
-    // 3: t = (bf16(relation) @ bf16(W1) + b1) * valid on tensor cores
-    t_rows<T>(rr, w1t, b1, vld, tt);
+    // 3: t = (bf16(relation) @ bf16(W1) + b1) * valid on tensor cores (at
+    //    C = 512, R = 32: the G columns in four strips, one per warp)
+    t_rows<T, G, true, (C > 384 ? kWarps / (R / 16) : 1)>(rr, w1t, b1, vld, tt);
     __syncthreads();
 
     // 4: this tile's sums: [sum t | sum t^2 | count | sum pos | sum pos pos^T]
@@ -174,8 +175,9 @@ int stats_occupancy(int* blocks) {
 
 }  // namespace
 
-// The instances: S = 16 and group width C / G = 8 at C = 48, 96, 192, 384,
-// every stage of the S3DIS config.
+// The instances: S = 16 and group width C / G = 8 at C = 48, 96, 192, 384
+// (every stage of the S3DIS config) and 512 (the ScanNet config's deepest
+// encoder stage, G = 64).
 extern "C" int gva_stats_launch(const void* src, const void* qrow,
                                 const void* idx, const void* valid,
                                 const void* A, const void* cA, const void* Wp2,
@@ -193,6 +195,7 @@ extern "C" int gva_stats_launch(const void* src, const void* qrow,
     AO_STATS(96)
     AO_STATS(192)
     AO_STATS(384)
+    AO_STATS(512)
   }
 #undef AO_STATS
   return cudaErrorInvalidValue;
@@ -205,6 +208,7 @@ extern "C" int gva_stats_blocks_per_sm(int C, int* blocks) {
     case 96: return stats_occupancy<96>(blocks);
     case 192: return stats_occupancy<192>(blocks);
     case 384: return stats_occupancy<384>(blocks);
+    case 512: return stats_occupancy<512>(blocks);
   }
   return cudaErrorInvalidValue;
 }

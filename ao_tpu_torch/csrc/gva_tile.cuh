@@ -2,8 +2,11 @@
 // gva_stats.cu, K6 gva_bwd.cu).
 //
 // A tile is R edges: TQ queries x S = 16 neighbour slots, R = 128 (TQ = 8)
-// at C <= 96 and R = 64 (TQ = 4) at C >= 192, so every row-by-weight
-// product has m >= 64 whatever the width. Per tile the recompute that K3,
+// at C <= 96, R = 64 (TQ = 4) at C = 192 and 384, so every row-by-weight
+// product has m >= 64 at those widths, and R = 32 (TQ = 2) at C = 512,
+// where the tiles of R = 64 would not fit in a block's shared memory.
+// (A stage with S = 8 neighbours runs these S = 16 instances on its slots
+// widened by 8 invalid ones: ops/gva.py.) Per tile the recompute that K3,
 // K5 and K6 share (the attention forward up to the weight encoding's first
 // layer) is
 //   gather   rows of the S neighbours by id, validity v
@@ -34,7 +37,7 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int kS = 16;        // neighbour slots (every stage of the config)
+constexpr int kS = 16;        // neighbour slots (S = 8 stages are widened)
 constexpr int kWarps = 8;     // warps per block of K5 and K6
 constexpr int kThreads = 32 * kWarps;
 constexpr int kSlab = 16;     // rows of a streamed Wp2 slab
@@ -44,7 +47,7 @@ template <int C_>
 struct Tile {
   static constexpr int C = C_;
   static constexpr int G = C / 8;
-  static constexpr int TQ = C <= 96 ? 8 : 4;
+  static constexpr int TQ = C <= 96 ? 8 : (C <= 384 ? 4 : 2);
   static constexpr int R = TQ * kS;
   static constexpr int Gp = (G + 15) / 16 * 16;  // G padded for k = 16
   static constexpr int ldc = C + 8;               // pitch of R x C bf16 tiles

@@ -28,7 +28,7 @@
 // shared memory as float4 {x, y, z, |k|^2} (one broadcast 16-byte load a
 // column, read by the Q = 1 or 2 queries of a thread) and the original ids.
 // For k = 3 the list is short: one scan in column order inserts into it
-// at every column that beats it. For k = 16, three steps per query:
+// at every column that beats it. For k = 8 and 16, three steps per query:
 //   1. Threshold. The running minimum of the scores in each of G = 2k
 //      column classes (column mod G). The k-th smallest of the G class
 //      minima, tau, bounds the k-th smallest score of the window from
@@ -61,7 +61,7 @@ constexpr int kWarpsPerSM = 8;
 template <int K>
 struct Shape {
   // a list this short is cheap to insert into at every column that beats
-  // it: one scan (k = 3); longer lists take the three steps (k = 16)
+  // it: one scan (k = 3); longer lists take the three steps (k = 8, 16)
   static constexpr bool kOnePass = K <= 4;
   static constexpr int G = 2 * K;    // column classes
   static constexpr int CAP = 2 * K;  // buffered columns a query
@@ -432,11 +432,16 @@ extern "C" int knn_window_launch(const void* keys, const void* k2,
 #define AO_KNN_LAUNCH(KK, QQ)                                                  \
   return launch<KK, QQ>(kf, k2f, of, qf, wf, d2f, idxf, B, Nk, Nq, T, tile_q, \
                         window, st)
-  // k = 16 builds the S3DIS config's self graphs, k = 3 the unpool
-  // (interpolation) graph; a config with other counts adds an instance
+  // k = 16 builds the configs' self graphs, k = 8 the ScanNet config's
+  // patch-embed graph, k = 3 the unpool (interpolation) graph; a config
+  // with other counts adds an instance
   if (k == 16) {
     if (fits(2)) AO_KNN_LAUNCH(16, 2);
     AO_KNN_LAUNCH(16, 1);
+  }
+  if (k == 8) {
+    if (fits(2)) AO_KNN_LAUNCH(8, 2);
+    AO_KNN_LAUNCH(8, 1);
   }
   if (k == 3) {
     if (fits(2)) AO_KNN_LAUNCH(3, 2);

@@ -3,7 +3,8 @@
 Samples are padded to a capacity rounded up to ``pad_multiple`` and
 stacked into ``(B, N_max, ...)`` CPU tensors with a bool ``mask``;
 ``segment`` and ``instance`` pad with the ignore label. The caller moves
-the batch to its device.
+the batch to its device. ``point_collate_fn`` adds Mix3D: with probability
+``mix_prob`` consecutive sample pairs merge into one scene.
 """
 
 from __future__ import annotations
@@ -76,3 +77,30 @@ def collate_fn(
     if extras:
         out["extras"] = extras
     return out
+
+
+def point_collate_fn(
+    batch: List[Dict],
+    mix_prob: float = 0.0,
+    pad_multiple: int = 1024,
+    max_points: Optional[int] = None,
+    ignore_index: int = -1,
+    generator: Optional[torch.Generator] = None,
+) -> Dict[str, torch.Tensor]:
+    """Collate with Mix3D (port of ao_tpu/datasets/collate.py:
+    point_collate_fn): for a batch of even length, with probability
+    ``mix_prob`` every pair (2i, 2i + 1) is concatenated along the point
+    axis (the per-point arrays of ``PAD_KEYS``; other keys keep the first
+    sample's) before :func:`collate_fn`, which then truncates each merged
+    scene to ``max_points``. The draw is one uniform number from
+    ``generator`` (the default generator when None), taken only when
+    ``mix_prob > 0`` and the length is even."""
+    if (mix_prob > 0 and len(batch) % 2 == 0
+            and float(torch.rand((), generator=generator)) < mix_prob):
+        merged = []
+        for a, b in zip(batch[0::2], batch[1::2]):
+            merged.append({k: (np.concatenate([a[k], b[k]], axis=0)
+                               if isinstance(a[k], np.ndarray) and k in PAD_KEYS
+                               else a[k]) for k in a})
+        batch = merged
+    return collate_fn(batch, pad_multiple, max_points, ignore_index)

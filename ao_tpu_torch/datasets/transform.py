@@ -1,8 +1,11 @@
-"""Host-side point-cloud transforms of the S3DIS train and test paths.
+"""Host-side point-cloud transforms of the S3DIS and ScanNet train and test
+paths.
 
-Port of the transforms of ao_tpu/datasets/transform.py that the S3DIS
-PT-v2m2 configs name, with the same semantics (FNV-1a voxel
-hashing, train and test GridSample modes, random sphere crops). Arrays
+Port of the transforms of ao_tpu/datasets/transform.py that the S3DIS and
+ScanNet PT-v2m2 configs name, with the same semantics (FNV-1a voxel
+hashing, train and test GridSample modes, random sphere crops, dropout,
+rotations, elastic distortion; ScanNet's limited-annotation
+``sampled_index`` kept through dropout and grid sampling). Arrays
 stay numpy until ``collate_fn``; randomness comes from a
 ``torch.Generator`` (the default one unless a transform is given its own).
 """
@@ -251,6 +254,139 @@ class ChromaticJitter:
 
 
 @TRANSFORMS.register_module()
+class RandomDropout:
+    """With probability ``dropout_application_ratio`` keep a random
+    ``1 - dropout_ratio`` of the points (without replacement), and every
+    point of ``sampled_index``, renumbered into the kept points."""
+
+    def __init__(self, dropout_ratio=0.2, dropout_application_ratio=0.5,
+                 generator: Optional[torch.Generator] = None):
+        self.dropout_ratio = dropout_ratio
+        self.dropout_application_ratio = dropout_application_ratio
+        self.generator = generator
+
+    def __call__(self, data_dict):
+        if _uniform(0.0, 1.0, 1, self.generator)[0] < self.dropout_application_ratio:
+            n = len(data_dict["coord"])
+            m = int(n * (1 - self.dropout_ratio))
+            idx = torch.randperm(n, generator=self.generator)[:m].numpy()
+            if "sampled_index" in data_dict:
+                idx = np.unique(np.append(idx, data_dict["sampled_index"]))
+                keep = np.zeros(n, bool)
+                keep[data_dict["sampled_index"]] = True
+                data_dict["sampled_index"] = np.where(keep[idx])[0]
+            index_points(data_dict, idx)
+        return data_dict
+
+
+def _rotation_matrix(angle: float, axis: str) -> np.ndarray:
+    c, s = np.cos(angle), np.sin(angle)
+    if axis == "x":
+        return np.array([[1, 0, 0], [0, c, -s], [0, s, c]])
+    if axis == "y":
+        return np.array([[c, 0, s], [0, 1, 0], [-s, 0, c]])
+    if axis == "z":
+        return np.array([[c, -s, 0], [s, c, 0], [0, 0, 1]])
+    raise ValueError(f"rotation axis {axis!r}")
+
+
+class _BaseRotate:
+    """Rotate ``coord`` about ``center`` (the bounding box's centre when
+    None) and ``normal`` by ``angle`` radians about ``axis``."""
+
+    def _apply(self, data_dict, angle):
+        rot = _rotation_matrix(angle, self.axis)
+        if "coord" in data_dict:
+            if self.center is None:
+                center = (data_dict["coord"].min(0) + data_dict["coord"].max(0)) / 2
+            else:
+                center = np.asarray(self.center)
+            data_dict["coord"] = (data_dict["coord"] - center) @ rot.T + center
+        if "normal" in data_dict:
+            data_dict["normal"] = data_dict["normal"] @ rot.T
+        return data_dict
+
+
+@TRANSFORMS.register_module()
+class RandomRotate(_BaseRotate):
+    """With probability ``p``, rotate by a uniform angle in ``angle`` x pi."""
+
+    def __init__(self, angle=None, center=None, axis="z", always_apply=False,
+                 p=0.5, generator: Optional[torch.Generator] = None):
+        self.angle = [-1, 1] if angle is None else angle
+        self.axis = axis
+        self.center = center
+        self.p = 1.0 if always_apply else p
+        self.generator = generator
+
+    def __call__(self, data_dict):
+        if _uniform(0.0, 1.0, 1, self.generator)[0] > self.p:
+            return data_dict
+        angle = _uniform(self.angle[0], self.angle[1], 1, self.generator)[0]
+        return self._apply(data_dict, angle * np.pi)
+
+
+@TRANSFORMS.register_module()
+class RandomRotateTargetAngle(_BaseRotate):
+    """With probability ``p``, rotate by one of ``angle`` (x pi), drawn
+    uniformly."""
+
+    def __init__(self, angle=(1 / 2, 1, 3 / 2), center=None, axis="z",
+                 always_apply=False, p=0.75,
+                 generator: Optional[torch.Generator] = None):
+        self.angle = angle
+        self.axis = axis
+        self.center = center
+        self.p = 1.0 if always_apply else p
+        self.generator = generator
+
+    def __call__(self, data_dict):
+        if _uniform(0.0, 1.0, 1, self.generator)[0] > self.p:
+            return data_dict
+        i = int(torch.randint(0, len(self.angle), (1,), generator=self.generator))
+        return self._apply(data_dict, self.angle[i] * np.pi)
+
+
+@TRANSFORMS.register_module()
+class ElasticDistortion:
+    """With probability 0.95, displace the points by a smooth random field
+    for each (granularity, magnitude) of ``distortion_params``, in order:
+    white noise on a grid of spacing ``granularity`` (one padding cell on
+    every side), blurred twice by a 3-tap box filter per axis and sampled
+    trilinearly at each point (scipy.ndimage, as ao_tpu)."""
+
+    def __init__(self, distortion_params=None,
+                 generator: Optional[torch.Generator] = None):
+        self.distortion_params = ([[0.2, 0.4], [0.8, 1.6]]
+                                  if distortion_params is None
+                                  else distortion_params)
+        self.generator = generator
+
+    def elastic_distortion(self, coords, granularity, magnitude):
+        from scipy import ndimage
+
+        mins = coords.min(0)
+        dims = ((coords.max(0) - mins) // granularity).astype(int) + 3
+        field = _normal((*dims, 3), self.generator).astype(np.float32)
+        for _ in range(2):
+            field = ndimage.uniform_filter(field, size=(3, 3, 3, 1),
+                                           mode="constant")
+        gidx = ((coords - mins) / granularity + 1.0).T  # (3, N), past the pad
+        disp = np.stack([ndimage.map_coordinates(field[..., c], gidx, order=1,
+                                                 mode="constant")
+                         for c in range(3)], axis=-1)
+        return coords + disp * magnitude
+
+    def __call__(self, data_dict):
+        if "coord" in data_dict and self.distortion_params is not None:
+            if _uniform(0.0, 1.0, 1, self.generator)[0] < 0.95:
+                for granularity, magnitude in self.distortion_params:
+                    data_dict["coord"] = self.elastic_distortion(
+                        data_dict["coord"], granularity, magnitude)
+        return data_dict
+
+
+@TRANSFORMS.register_module()
 class SphereCrop:
     """Keep the ``point_max`` points nearest a random point (mode "random")
     or the middle point (mode "center") when the cloud has more."""
@@ -326,6 +462,13 @@ class GridSample:
                 0, int(count.max()), (count.size,), generator=self.generator
             ).numpy()
             idx_unique = idx_sort[seg_starts + pick % count]
+            if "sampled_index" in data_dict:
+                # limited annotations: the labelled points stay in the sample
+                idx_unique = np.unique(
+                    np.append(idx_unique, data_dict["sampled_index"]))
+                keep = np.zeros_like(data_dict["segment"], bool)
+                keep[data_dict["sampled_index"]] = True
+                data_dict["sampled_index"] = np.where(keep[idx_unique])[0]
             if self.return_discrete_coord:
                 data_dict["discrete_coord"] = discrete[idx_unique]
             for key_name in self.keys:

@@ -20,7 +20,10 @@ the epoch it ends still runs its after_epoch hooks (evaluation, saving).
 grid-sampled points or, when the batch carries ``origin_coord`` /
 ``origin_segment``, on the full-resolution points.
 
-Not ported yet: Mix3D collation (``mix_prob``), parameter groups, and data
+The train loader collates with Mix3D (``cfg.mix_prob``,
+``point_collate_fn``); the mix draw comes from the loader's generator
+(with workers, from each worker's default generator, which the loader
+seeds from its own). Not ported yet: parameter groups, and data
 parallelism over several cards.
 """
 
@@ -33,7 +36,7 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
-from ..datasets import build_dataset, collate_fn
+from ..datasets import build_dataset, point_collate_fn
 from ..models import build_criteria, build_model
 from ..models.utils import DropPath
 from ..ops.knn import knn
@@ -129,8 +132,6 @@ class Trainer(TrainerBase):
         os.makedirs(os.path.join(self.save_path, "model"), exist_ok=True)
         self.logger = get_root_logger(
             log_file=os.path.join(self.save_path, "train.log"))
-        if cfg.get("mix_prob", 0):
-            raise NotImplementedError("Mix3D collation (mix_prob) is not ported")
         self.seed = set_seed(cfg.get("seed"))
         self.logger.info(f"Save path: {self.save_path}; device {self.device}")
 
@@ -160,10 +161,13 @@ class Trainer(TrainerBase):
                        if cfg.get("enable_tensorboard", True) else None)
         self.register_hooks(cfg.get("hooks"))
 
-    def _collate(self):
+    def _collate(self, mix_prob=0.0, generator=None):
+        """The loaders' collate: Mix3D at ``mix_prob``, its draw from
+        ``generator``."""
         cfg = self.cfg
         return functools.partial(
-            collate_fn, pad_multiple=cfg.get("pad_multiple", 4096),
+            point_collate_fn, mix_prob=mix_prob, generator=generator,
+            pad_multiple=cfg.get("pad_multiple", 4096),
             max_points=cfg.get("max_points"),
             ignore_index=cfg.data.get("ignore_index", -1))
 
@@ -174,10 +178,15 @@ class Trainer(TrainerBase):
         dataset = build_dataset(self.cfg.data.train)
         g = torch.Generator()
         g.manual_seed(self.seed)
+        workers = self._workers()
+        # a worker collates with its default generator, seeded by the
+        # loader from g; in-process collation draws from g itself
+        collate = self._collate(self.cfg.get("mix_prob", 0.0),
+                                None if workers else g)
         return torch.utils.data.DataLoader(
             dataset, batch_size=self.cfg.batch_size, shuffle=True, generator=g,
-            drop_last=True, num_workers=self._workers(),
-            collate_fn=self._collate(), pin_memory=self.device.type == "cuda")
+            drop_last=True, num_workers=workers, collate_fn=collate,
+            pin_memory=self.device.type == "cuda")
 
     def build_val_loader(self):
         cfg = self.cfg
@@ -245,7 +254,8 @@ class Trainer(TrainerBase):
         self.step += 1
         self.history.append(dict(
             loss_dict, data_seconds=self.comm_info["data_seconds"], lr=lr,
-            points=int(batch["mask"].sum()), epoch=self.epoch))
+            points=int(batch["mask"].sum()), scenes=int(batch["mask"].shape[0]),
+            epoch=self.epoch))
 
     def current_lr(self) -> float:
         """The learning rate of the last step taken."""

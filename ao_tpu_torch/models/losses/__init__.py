@@ -1,2 +1,2 @@
 from .builder import LOSSES, Criteria, build_criteria
-from . import misc  # noqa: F401
+from . import lovasz, misc  # noqa: F401

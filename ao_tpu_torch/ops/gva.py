@@ -16,8 +16,12 @@ slab-mode AND gathered-mode kernel of the same function:
   (``_bwd_kernel``, and ``_bwd_stats_kernel`` of the gathered family).
 
 K3, K5 and K6 share the tensor-core tile routine of ``gva_tile.cuh`` and
-are built for the (C, G) instances of the S3DIS config (C = 48, 96, 192,
-384, G = C / 8, S = 16); their wrappers raise on any other width.
+are built for the widths of :data:`GVA_WIDTHS` (every stage of the S3DIS
+and ScanNet PT-v2m2 configs: C = 48, 96, 192, 384, 512 with G = C / 8), K4
+for any C % 8 = 0, all four for S = 16 neighbour slots. A stage with fewer
+slots (the ScanNet config's patch embed, S = 8) runs the S = 16 instances on
+its slots widened by invalid ones (:func:`widen_slots`), which computes the
+same function. The wrappers raise on any other shape.
 
 The kernels gather neighbour rows themselves, so one kernel serves both
 call modes: the caller passes sorted or unsorted source rows with the
@@ -177,13 +181,13 @@ def gva_eval(src, qrow, idx, valid, fp):
     ids into src, valid (B, Nq, S) bool, fp the folded parameters of
     :func:`folded_params` (or the batch-statistic folds of
     :class:`GVATrain`). Returns out (B, Nq, C) f32. The kernel is built for
-    the widths of :data:`GVA_WIDTHS` with G = C / 8 and S = 16; any other
-    shape raises."""
+    the widths of :data:`GVA_WIDTHS` with G = C / 8 and S <= 16 (widened
+    to 16); any other shape raises."""
     if src.device.type == "cpu":
         return gva_eval_plain(src, qrow, idx, valid, fp)
     args = _check_rows("gva_eval", src, qrow, idx, valid)
     B, Nsrc, _ = src.shape
-    Nq, S = idx.shape[1:]
+    Nq, S = idx.shape[1], GVA_SLOTS
     C = qrow.shape[-1] - 7
     G = fp["W2"].shape[0]
     _check_width("gva_eval", C, G)
@@ -217,8 +221,25 @@ def _sm_count(device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-# the widths K3, K5 and K6 are built for (every stage of the S3DIS config)
-GVA_WIDTHS = (48, 96, 192, 384)
+# the widths K3, K5 and K6 are built for (G = C / 8): every stage of the
+# S3DIS config, and the ScanNet config's C = 512 encoder stage
+GVA_WIDTHS = (48, 96, 192, 384, 512)
+# the neighbour slots of every kernel's instances
+GVA_SLOTS = 16
+
+
+def widen_slots(idx, valid, slots=GVA_SLOTS):
+    """(idx, valid) of (B, Nq, S <= slots) widened to ``slots`` slots by
+    invalid ones (id 0). The GVA kernels compute the same function on
+    them: the relative positions, pe1 and t are multiplied by the validity,
+    the softmax masks invalid slots before it normalises, the moments count
+    valid edges only, and the backward's gradients at invalid slots are 0."""
+    pad = slots - idx.shape[-1]
+    if pad == 0:
+        return idx, valid
+    B, Nq = idx.shape[:2]
+    return (torch.cat([idx, idx.new_zeros((B, Nq, pad))], dim=-1),
+            torch.cat([valid, valid.new_zeros((B, Nq, pad))], dim=-1))
 
 
 def _check_width(name, C, G):
@@ -228,15 +249,18 @@ def _check_width(name, C, G):
 
 
 def _check_rows(name, src, qrow, idx, valid):
+    """The row arguments as the kernels take them, with idx and valid
+    widened to :data:`GVA_SLOTS` slots; raises outside the contract."""
     B, Nsrc, rw = src.shape
     C = qrow.shape[-1] - 7
-    if (rw != 2 * C + 6 or idx.shape[-1] != 16 or C % 8
+    if (rw != 2 * C + 6 or idx.shape[-1] > GVA_SLOTS or C % 8
             or src.dtype != torch.bfloat16 or qrow.dtype != torch.bfloat16
             or qrow.shape[:2] != idx.shape[:2] or valid.shape != idx.shape):
         raise ValueError(
             f"{name}: rows {tuple(src.shape)} {src.dtype}, qrow "
             f"{tuple(qrow.shape)}, idx {tuple(idx.shape)} outside the "
             f"kernel's contract")
+    idx, valid = widen_slots(idx, valid)
     return [src.contiguous(), qrow.contiguous(),
             idx.to(torch.int32).contiguous(),
             (valid.view(torch.uint8) if valid.dtype == torch.bool
@@ -268,7 +292,7 @@ def gva_pos(src, qrow, idx, valid):
     args = _check_rows("gva_pos", src, qrow, idx, valid)
     _native.require_cuda("gva_pos", *args)
     B, Nsrc, _ = src.shape
-    Nq, S = idx.shape[1:]
+    Nq, S = idx.shape[1], GVA_SLOTS
     C = qrow.shape[-1] - 7
     # the kernel reads 4 ids as one int4 and 4 validity bytes as one word
     if args[2].data_ptr() % 16:
@@ -318,7 +342,7 @@ def gva_stats(src, qrow, idx, valid, A, cA, Wp2, bp2, W1, b1):
              W1.to(bf).contiguous(), b1.float().contiguous()]
     _native.require_cuda("gva_stats", *args)
     B, Nsrc, _ = src.shape
-    Nq, S = idx.shape[1:]
+    Nq, S = idx.shape[1], GVA_SLOTS
     # one row of 2G + 13 partial sums per block: as many blocks as the
     # SMs hold at once
     nblk = _grid("gva_stats", src.device, C, B * -(-Nq // _tile_queries(C)))
@@ -339,7 +363,7 @@ gva_stats.launches = 0
 
 def _tile_queries(C):
     """Queries per tile of K3, K5 and K6 (csrc/gva_tile.cuh: Tile<C>::TQ)."""
-    return 8 if C <= 96 else 4
+    return 8 if C <= 96 else (4 if C <= 384 else 2)
 
 
 _OCCUPANCY = {}
@@ -461,14 +485,14 @@ def gva_bwd(src, qrow, idx, valid, fp, dout):
         return gva_bwd_plain(src, qrow, idx, valid, fp, dout)
     args = _check_rows("gva_bwd", src, qrow, idx, valid)
     B, Nsrc, _ = src.shape
-    Nq, S = idx.shape[1:]
+    Nq, S = idx.shape[1], GVA_SLOTS
     C = qrow.shape[-1] - 7
     G = fp["W2"].shape[0]
     _check_width("gva_bwd", C, G)
     bf = torch.bfloat16
     Wp2 = fp["Wp2"].to(bf).contiguous()
     # the kernel stages Wp2 in shared memory and reads it both ways; at
-    # C = 384 it streams the weight from device memory, Wp2^T for dpe0
+    # C >= 384 it streams the weight from device memory, Wp2^T for dpe0
     Wp2T = Wp2.t().contiguous() if C > 192 else Wp2
     args += [fp["A"].to(bf).contiguous(), fp["cA"].float().contiguous(),
              Wp2, Wp2T, fp["bp2"].float().contiguous(),

@@ -71,6 +71,11 @@ def knn_window_plain(keys_sorted, k2, order, queries_sorted, window_starts,
     return d2.reshape(B, Nqp, k), idx.reshape(B, Nqp, k).to(torch.int32)
 
 
+# the neighbour counts K1 is built for: the self graphs (16; 8 for the
+# ScanNet config's patch embed) and the unpool search (3)
+KNN_WINDOW_K = (3, 8, 16)
+
+
 def knn_window(keys_sorted, k2, order, queries_sorted, window_starts, k,
                tile_q, window):
     """K1 (replaces ops/pallas/knn_window.py:knn_window_pallas).
@@ -84,7 +89,7 @@ def knn_window(keys_sorted, k2, order, queries_sorted, window_starts, k,
                                 window_starts, k, tile_q, window)
     B, Nk, _ = keys_sorted.shape
     Nqp = queries_sorted.shape[1]
-    if not (k in (3, 16) and k <= window <= Nk and Nqp % tile_q == 0):
+    if not (k in KNN_WINDOW_K and k <= window <= Nk and Nqp % tile_q == 0):
         raise ValueError(
             f"knn_window: k={k} tile_q={tile_q} window={window} Nk={Nk} "
             f"Nqp={Nqp} out of the kernel's range"

@@ -1,12 +1,14 @@
 """K6 (`gva_bwd`) against its plain version on random graphs at the train
-step's shapes.
+steps' shapes.
 
     python -m ao_tpu_torch.tools.check_gva_bwd [--seeds 0 1 2 3] [--time]
 
 ``chip_smoke.py`` holds K6 against ``gva_bwd_plain`` on the graphs of its
 own synthetic rooms; this check adds random window graphs at the same
 shapes (B=3 at the four stage sizes of an 81920-point batch, and the
-gathered C=384 stage of a small batch), one per seed, where a gate
+gathered C=384 stage of a small batch) and at the ScanNet config's new
+ones (its patch embed, S=8 at C=48 on B=4 x 102400, and its gathered C=512
+stage), one per seed, where a gate
 t > 0 that falls the other way from the plain version's shows as a dq
 error of several percent of scale (the band is 1e-2). For the first seed
 it also checks what K6's exact gates rely on: that the plain version's
@@ -25,15 +27,17 @@ import torch
 
 from ..ops import gva as tg
 
-# (B, N, C): the train step's stages at B=3 x 81920 and the small batch's
-# gathered C=384 stage, as chip_smoke.py captures them
-SHAPES = ((3, 81920, 48), (3, 28672, 96), (3, 10035, 192), (3, 3512, 384),
-          (2, 702, 384))
+# (B, N, C, S): the S3DIS train step's stages at B=3 x 81920 and the small
+# batch's gathered C=384 stage, as chip_smoke.py captures them; the ScanNet
+# config's patch embed (S=8) and gathered C=512 stage at B=4
+SHAPES = ((3, 81920, 48, 16), (3, 28672, 96, 16), (3, 10035, 192, 16),
+          (3, 3512, 384, 16), (2, 702, 384, 16), (4, 102400, 48, 8),
+          (4, 1600, 512, 16))
 
 
-def random_graph(seed, B, N, C, device):
+def random_graph(seed, B, N, C, device, S=16):
     """Rows, ids and folded parameters of a random window graph (every key
-    within 64 rows of its query), S = 16, G = C / 8."""
+    within 64 rows of its query), S slots, G = C / 8."""
     G = C // 8
     rng = np.random.default_rng(seed)
 
@@ -46,9 +50,9 @@ def random_graph(seed, B, N, C, device):
                      tg.pack_coords(coord)], -1)
     qrow = torch.cat([f(B, N, C, m=0.5).bfloat16(), tg.pack_coords(coord),
                       mask[..., None].bfloat16()], -1)
-    near = np.arange(N)[None, :, None] + rng.integers(-64, 64, (B, N, 16))
+    near = np.arange(N)[None, :, None] + rng.integers(-64, 64, (B, N, S))
     idx = torch.from_numpy(np.clip(near, 0, N - 1).astype(np.int32))
-    valid = torch.from_numpy(rng.random((B, N, 16)) < 0.9) & mask[..., None]
+    valid = torch.from_numpy(rng.random((B, N, S)) < 0.9) & mask[..., None]
     fp = dict(A=f(3, C, m=2.0), cA=f(C, m=0.1), Wp2=f(C, C, m=C ** -0.5),
               bp2=f(C, m=0.1), W1f=f(C, G, m=C ** -0.5), b1f=f(G, m=0.1),
               W2=f(G, G, m=G ** -0.5), b2=f(G, m=0.1))
@@ -105,10 +109,10 @@ def main(argv=None):
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
     ok = True
-    for B, N, C in SHAPES:
+    for B, N, C, S in SHAPES:
         for i, seed in enumerate(a.seeds):
-            args = random_graph(seed * 1000 + C, B, N, C, dev)
-            row = dict(B=B, N=N, C=C, seed=seed)
+            args = random_graph(seed * 1000 + C, B, N, C, dev, S)
+            row = dict(B=B, N=N, C=C, S=S, seed=seed)
             if a.time:
                 row["ms"] = k6_ms(args)
                 print(json.dumps(row), flush=True)

@@ -8,8 +8,9 @@ own synthetic rooms; this check adds the random window graphs of
 ``check_gva_bwd.random_graph`` (about 10% of the slots invalid, 3% of the
 queries masked), one per seed and shape, at the train step's shapes
 (B=3 at the four stage sizes of an 81920-point batch), the test slice's
-largest batch (B=8 at the four stage sizes of a 90112-point batch) and
-the gathered C=384 stage of a small batch (B=2, N=702), in a band of
+largest batch (B=8 at the four stage sizes of a 90112-point batch), the
+gathered C=384 stage of a small batch (B=2, N=702) and the ScanNet
+config's patch embed (S=8) and gathered C=512 stage, in a band of
 5e-3 of the output's scale, as ``chip_smoke.py`` holds it. In every case
 one query has no valid slot (its output must be 0), and at most stage
 sizes the last tile of queries is ragged. With ``--time`` it also
@@ -32,7 +33,8 @@ from .check_gva_bwd import random_graph
 
 # the test slice's largest batch (B=8 x 90112): patch embedding / decoder
 # C=48, then the encoder stages
-TEST_SHAPES = ((8, 90112, 48), (8, 31539, 96), (8, 11038, 192), (8, 3863, 384))
+TEST_SHAPES = ((8, 90112, 48, 16), (8, 31539, 96, 16), (8, 11038, 192, 16),
+               (8, 3863, 384, 16))
 SHAPES = TRAIN_SHAPES + TEST_SHAPES
 
 
@@ -69,10 +71,10 @@ def main(argv=None):
         print(json.dumps({"blocks_per_sm": {C: blocks_per_sm(C)
                                             for C in tg.GVA_WIDTHS}}), flush=True)
     ok = True
-    for B, N, C in SHAPES:
+    for B, N, C, S in SHAPES:
         for seed in a.seeds:
             src, qrow, idx, valid, fp, _ = random_graph(seed * 1000 + C, B, N, C,
-                                                        dev)
+                                                        dev, S)
             valid[-1, N // 2] = False  # a query with no valid slot
             args = (src, qrow, idx, valid, fp)
             out = tg.gva_eval(*args)
@@ -80,7 +82,7 @@ def main(argv=None):
             torch.cuda.synchronize()
             scale = max(float(ref.abs().max()), 1.0)
             err = float((out - ref).abs().max())
-            row = dict(B=B, N=N, C=C, seed=seed, err_over_scale=err / scale,
+            row = dict(B=B, N=N, C=C, S=S, seed=seed, err_over_scale=err / scale,
                        empty_query_zero=bool((out[-1, N // 2] == 0).all()))
             row["ok"] = err < 5e-3 * scale and row["empty_query_zero"]
             if a.time:

@@ -1,5 +1,5 @@
 """K1 (`knn_window`) against its plain version on random clouds at every
-(tile_q, window, k) of the S3DIS path.
+(tile_q, window, k) of the S3DIS and ScanNet paths.
 
     python -m ao_tpu_torch.tools.check_knn_window [--seeds 0 1 2 3] [--time]
 
@@ -19,9 +19,10 @@ path's) on four kinds of cloud, one per seed:
   queries whose windows hold only invalid keys.
 
 Self graphs of the slab path (B=8 x 90112: (tile_q, window) = (128, 640),
-(128, 512), (64, 512)), the unpool cross probe (B=8, 90112 queries over
-31616 keys: (512, 640), k=3) and the gathered stages' 3-probe self graph
-(B=2 x 2048: (256, 1152); B=2 x 702: (256, 702)). Required at every case:
+(128, 512), (64, 512); k=16, and k=8 at (128, 640) for the ScanNet patch
+embed), the unpool cross probe (B=8, 90112 queries over 31616 keys:
+(512, 640), k=3) and the gathered stages' 3-probe self graph (B=2 x 2048:
+(256, 1152); B=2 x 702: (256, 702); k=16 and 8). Required at every case:
 scores within 1e-5 x max(|plain score|, 1) (the band of ``chip_smoke.py``);
 ids equal to the plain version's except where two keys' scores lie within
 that band of each other (the kernel's fused multiply-adds round apart from
@@ -107,10 +108,10 @@ def cases(kind, seed, device, B=8, N=90112):
     sc, sm = _sorted(coord, mask)
     out = []
     # self graphs of the slab stages: C <= 96, C = 192, C = 384
-    for tile_q, window, front in ((128, 640, 256), (128, 512, 192),
-                                  (64, 512, 224)):
+    for k, tile_q, window, front in ((16, 128, 640, 256), (16, 128, 512, 192),
+                                     (16, 64, 512, 224), (8, 128, 640, 256)):
         out += captured(lambda: ks.knn_self_presorted(
-            sc, sm, k=16, tile_q=tile_q, window=window, front=front))
+            sc, sm, k=k, tile_q=tile_q, window=window, front=front))
     # unpool: the fine cloud's points over a third of them (one probe)
     kc, km = coord[:, ::3].contiguous(), mask[:, ::3].contiguous()
     out += captured(lambda: ks._window_probe(coord, kc, mask, km, 3, 512, 512,
@@ -118,8 +119,9 @@ def cases(kind, seed, device, B=8, N=90112):
     # gathered stages: one probe of the 3-probe self graph
     for n in (2048, 702):
         c2, m2 = coord[:2, :n].contiguous(), mask[:2, :n].contiguous()
-        out += captured(lambda: ks._window_probe(c2, c2, m2, m2, 16, 256, 1024,
-                                                 0.0, True))
+        for k in (16, 8):
+            out += captured(lambda: ks._window_probe(c2, c2, m2, m2, k, 256,
+                                                     1024, 0.0, True))
     if kind == "sparse":
         # 97% of the keys invalid: windows with fewer than k valid keys
         sparse = []

@@ -22,14 +22,17 @@ def device_ms(fn, name: str, reps: int = 10, warmup: int = 2) -> float:
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
+    seen = set()
     for _ in range(3):
         with torch.profiler.profile(activities=acts) as prof:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        hits = [e for e in prof.key_averages()
-                if str(e.device_type).endswith("CUDA") and name in e.key
-                and e.count > 0]
+        cuda = [e for e in prof.key_averages()
+                if str(e.device_type).endswith("CUDA") and e.count > 0]
+        hits = [e for e in cuda if name in e.key]
         if hits:
             return sum(e.self_device_time_total / e.count for e in hits) / 1e3
-    raise RuntimeError(f"no CUDA kernel named like {name!r} in 3 traces")
+        seen.update(e.key[:60] for e in cuda)
+    raise RuntimeError(f"no CUDA kernel named like {name!r} in 3 traces; "
+                       f"CUDA kernels seen: {sorted(seen)[:8]}")

@@ -4,7 +4,8 @@
 
 Needs one CUDA card and nvcc; exits non-zero without them. Reads nothing
 under data/ or exp/: the scenes are synthetic and the weights are random.
-PT-v2m2 runs at the full width of configs/s3dis/semseg-pt-v2m2-0-base.py.
+PT-v2m2 runs at the full width of configs/s3dis/semseg-pt-v2m2-0-base.py,
+then of configs/scannet/semseg-pt-v2m2-0-base.py.
 
 1. Prints the card (nvidia-smi name and power limit), the torch and CUDA
    versions, and builds the kernels (one nvcc process per csrc/*.cu
@@ -59,10 +60,30 @@ PT-v2m2 runs at the full width of configs/s3dis/semseg-pt-v2m2-0-base.py.
    after, the step seconds with and without the basket fill, the
    refinement's seconds, SAM's ms and the peak memory.
 
-Each main path (the slice phase, the train phase, the REAL run) runs
-with every kernel's launch count set to 0 just before it and read just
-after, and fails if one of its kernels never launched. The last three lines are the
-card, the kernels' JSON record and {"ok": true, "device": {...}}.
+7. ScanNet phase: configs/scannet/semseg-pt-v2m2-0-base.py at full width
+   (its patch embed takes S=8 neighbours, its deepest stage C=512, G=64)
+   with the S3DIS config's bf16 compute (as written the config computes in
+   f32, which takes the unfused attention in both packages) on synthetic
+   rooms in ScanNet's .pth layout (make_room's geometry at
+   0.03 m, ScanNet's 20 classes, normals from a neighbourhood fit), made
+   here from the seed. Whole-scene testing of one room through the port's
+   entry point with the config's test_cfg (no crop, 10 TTA views), votes
+   checked as in 3; one train step with every kernel captured, the new
+   instances (K1 at k=8, K3-K6 at S=8 / C=48 and at C=512) held against
+   their plain versions and timed as in 2; then train steps at B=4 x
+   102400 through ao_tpu_torch.tools.train (Mix3D at the config's 0.8,
+   OneCycle): losses finite, each step's lr OneCycle's, at least one step
+   merged by Mix3D, each kernel's and instance's launches per step, the
+   step seconds and the peak memory. ``--scannet-batch B`` runs only these
+   train steps at batch B (the config's own 12), ``--scannet-options``
+   with other overrides (none: the config as written).
+
+Each main path (the slice phase, the train phase, the REAL run, the
+ScanNet test and train runs) runs with every kernel's launch count set to
+0 just before it and read just after, and fails if one of its kernels
+never launched. The last three lines are the card, the kernels' JSON
+record (one entry per kernel, then one per new instance of the ScanNet
+config) and {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -84,6 +105,8 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 BASE_CONFIG = os.path.join(ROOT, "configs", "s3dis", "semseg-pt-v2m2-0-base.py")
 REAL_CONFIG = os.path.join(ROOT, "configs", "s3dis",
                            "semseg-pt-v2m2-1-proxy-real.py")
+SCANNET_CONFIG = os.path.join(ROOT, "configs", "scannet",
+                              "semseg-pt-v2m2-0-base.py")
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W power limit)
 HBM_BYTES_PER_S = 3.35e12
@@ -356,7 +379,6 @@ def check_merge_topk(args, out_k, out_p):
     version, bit for bit; beside it, the row kernel on the concatenated
     tails against merge_topk_plain, bit for bit, with its device ms."""
     from ao_tpu_torch.ops import knn_spatial as ks
-    from ao_tpu_torch.utils.devtime import device_ms
 
     s, idx, q2, inv, k = args
     (dk, ik), (dp, ip) = out_k, out_p
@@ -368,7 +390,7 @@ def check_merge_topk(args, out_k, out_p):
     rk, rp = ks.merge_topk(d2, ids, k), ks.merge_topk_plain(d2, ids, k)
     rows_ok = torch.equal(rk[1], rp[1]) and torch.equal(
         rk[0].view(torch.int32), rp[0].view(torch.int32))
-    rows_ms = device_ms(lambda: ks.merge_topk(d2, ids, k), "merge_topk_kernel",
+    rows_ms = _device_ms(lambda: ks.merge_topk(d2, ids, k), "merge_topk_kernel",
                         reps=5, warmup=1)
     B, Nq = inv[0].shape
     width = len(s) * k
@@ -378,7 +400,7 @@ def check_merge_topk(args, out_k, out_p):
     bound_ms, by = _bound(nbytes, f32_ops=3.0 * B * Nq * k * width)
     return ok and rows_ok, float((dk - dp).abs().max()), bound_ms, by, None, (
         f"bitwise; row kernel on the concatenated tails bitwise={rows_ok} "
-        f"device_ms={rows_ms:.4f}")
+        f"device_ms={rows_ms}")
 
 
 def check_gva_eval(args, out_k, out_p):
@@ -532,14 +554,27 @@ def plain_versions():
     return PLAIN
 
 
+def _device_ms(fn, name, **kw):
+    """The kernel's device ms per launch (torch.profiler), or None where the
+    profiler recorded no CUDA kernel in any of its traces: on the card's
+    machine a trace now and then comes back with no device events at all,
+    and a missing device time must not stop the run (``ms``, by CUDA
+    events, is measured regardless)."""
+    from ao_tpu_torch.utils.devtime import device_ms
+
+    try:
+        return device_ms(fn, name, **kw)
+    except RuntimeError as e:
+        print(f"  device_ms of {name} not measured: {e}", flush=True)
+        return None
+
+
 def hold_captured(cap, phase):
     """Hold each kernel against its plain version on every captured
     (kernel, shape) and time both; raise if one disagrees. ``ms`` is the
     wrapper's time per call (CUDA events around back-to-back calls, host
     work included), ``device_ms`` the kernel's own device time per launch
-    (torch.profiler)."""
-    from ao_tpu_torch.utils.devtime import device_ms
-
+    (torch.profiler; None where no trace recorded it)."""
     plain = plain_versions()
     rows, failures = [], []
     for key, (name, fn, args) in cap.calls.items():
@@ -550,14 +585,14 @@ def hold_captured(cap, phase):
             ok, err, bound_ms, by, lib_ms, note = CHECKS[name](args, out_k, out_p)
             del out_k, out_p
             ms = cuda_ms(lambda: fn(*args))
-            dev_ms = device_ms(lambda: fn(*args), name, reps=5, warmup=0)
+            dev_ms = _device_ms(lambda: fn(*args), name, reps=5, warmup=0)
             plain_ms = cuda_ms(lambda: plain[name](*args), reps=3, warmup=1)
         row = dict(name=name, phase=phase, shape=describe(name, args), ok=ok,
                    max_abs_err=err, ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
                    bound_ms=bound_ms, bound_by=by, library_ms=lib_ms, note=note)
         rows.append(row)
         print(f"  {name:10s} {row['shape']:46s} ok={ok} err={err:.3g} "
-              f"ms={ms:.4f} device_ms={dev_ms:.4f} plain_ms={plain_ms:.3f} "
+              f"ms={ms:.4f} device_ms={dev_ms} plain_ms={plain_ms:.3f} "
               f"bound_ms={bound_ms:.4f} "
               f"({by}) library_ms={lib_ms} {note}", flush=True)
         if not ok:
@@ -732,9 +767,10 @@ def run_slice(device, seed=0, room_size=(4.8, 4.0, 2.6), spacing=0.034,
     return result, votes, n_views
 
 
-def check_votes(votes, n_views):
-    if votes.ndim != 2 or votes.shape[1] != 13:
-        raise RuntimeError(f"votes of shape {votes.shape}, expected (n, 13)")
+def check_votes(votes, n_views, num_classes=13):
+    if votes.ndim != 2 or votes.shape[1] != num_classes:
+        raise RuntimeError(f"votes of shape {votes.shape}, expected "
+                           f"(n, {num_classes})")
     if not np.isfinite(votes).all():
         raise RuntimeError("non-finite votes")
     # every vote is a whole softmax row, and every view's fragments cover
@@ -824,13 +860,13 @@ def train_setup(rooms, workdir=None, batch_size=3, max_steps=5, workers=3,
         f"data.val.transform={transform!r}"]
 
 
-def build_trainer(options, device):
+def build_trainer(options, device, config=BASE_CONFIG):
     from ao_tpu_torch.engines import Trainer, default_config_parser
     from ao_tpu_torch.utils import DictAction
 
     opts = {k: DictAction._parse_value(v) for k, v in
             (o.partition("=")[::2] for o in options)}
-    return Trainer(default_config_parser(BASE_CONFIG, opts), device=device)
+    return Trainer(default_config_parser(config, opts), device=device)
 
 
 def run_train(device, options):
@@ -1156,14 +1192,329 @@ def run_sam(workdir, basket, device, model_type="vit_h", size=512):
                 refine_s=refine_s, peak_gib=peak)
 
 
+# ---------------------------------------------------------------------------
+# ScanNet phase: the ScanNet PT-v2m2 config (S=8 patch embed, C=512 stage)
+# ---------------------------------------------------------------------------
+
+# (make_room seed, room size in m) of the ScanNet phase's train rooms: at
+# 0.03 m spacing 170k-200k points each, so that after the train transforms
+# (RandomDropout, RandomScale down to 0.9, GridSample at 0.02 m) SphereCrop
+# keeps 100000 points and a batch pads to the config's max_points = 102400
+SCANNET_ROOMS = ((11, (6.0, 5.0, 3.0)), (12, (6.4, 4.8, 3.0)),
+                 (13, (5.6, 5.4, 3.2)), (14, (5.2, 5.0, 3.0)))
+SCANNET_TEST_ROOM = (15, (4.8, 4.0, 2.6))
+SCANNET_SPACING = 0.03
+# The ScanNet config as written computes in f32, so in both packages its
+# attention takes the unfused path (ao_tpu's _fused_gva_ok and the port's
+# fused_ok want bf16) and only K1 and K2 run; with the S3DIS config's
+# bf16 compute every stage goes to the fused kernels K3-K6, the path this
+# phase holds
+SCANNET_BF16 = ("model.backbone.compute_dtype=bfloat16",)
+# ScanNet's 20 classes for the synthetic room's 13 (S3DIS order): ceiling
+# and beam are unlabelled in ScanNet (-1), a column is wall, a board a
+# picture, clutter otherfurniture
+_SCANNET20 = np.array([-1, 1, 0, -1, 0, 8, 7, 6, 4, 5, 9, 10, 19], np.int64)
+
+
+def scannet_normals(coord, k=10):
+    """Unit normals of a neighbourhood fit: the direction of least variance
+    of each point's k nearest points, turned to face the room's centre
+    (deterministic, no random draw)."""
+    from scipy.spatial import cKDTree
+
+    _, nn = cKDTree(coord).query(coord, k=k)
+    nb = coord[nn] - coord[nn].mean(1, keepdims=True)
+    _, vec = np.linalg.eigh(np.einsum("nki,nkj->nij", nb, nb))
+    normal = vec[:, :, 0]
+    flip = np.einsum("ni,ni->n", normal, coord.mean(0) - coord) < 0
+    normal[flip] = -normal[flip]
+    return normal.astype(np.float32)
+
+
+def make_scannet_room(seed, size, spacing=SCANNET_SPACING):
+    """A synthetic room in ScanNet's preprocessed layout, from
+    :func:`make_room`'s geometry and draws: coord, color, normal,
+    semantic_gt20 (ScanNet's 20 classes, -1 unlabelled), instance_gt."""
+    room = make_room(seed, size, spacing)
+    return dict(coord=room["coord"], color=room["color"],
+                normal=scannet_normals(room["coord"]),
+                semantic_gt20=_SCANNET20[room["semantic_gt"].reshape(-1)],
+                instance_gt=room["instance_gt"].reshape(-1))
+
+
+def scannet_setup(rooms, test_room=None, workdir=None, batch_size=4,
+                  max_steps=3, workers=3, seed=0):
+    """Write the rooms (from :func:`make_scannet_room`) as ScanNet train
+    scenes (``.pth``) and ``test_room`` as the val split's one scene, under
+    ``workdir`` (a new temporary directory by default). Returns (workdir,
+    the train entry point's KEY=VALUE overrides of the ScanNet config:
+    enough loops of the train scenes for ``max_steps`` in one epoch,
+    evaluation and TensorBoard off)."""
+    workdir = workdir or tempfile.mkdtemp(prefix="ao_chip_scannet_")
+    root = os.path.join(workdir, "scannet")
+    # the train scenes loop so that the run's steps fit in one epoch
+    loop = -(-batch_size * max_steps // len(rooms))
+    for split, scenes in (("train", rooms), ("val", [test_room] if test_room else [])):
+        os.makedirs(os.path.join(root, split), exist_ok=True)
+        for i, room in enumerate(scenes):
+            torch.save(room, os.path.join(root, split, f"scene{i:04d}_00.pth"))
+    options = [f"save_path={os.path.join(workdir, 'exp')}",
+               f"data.train.data_root={root}", f"batch_size={batch_size}",
+               f"max_steps={max_steps}", f"num_worker={workers}",
+               f"seed={seed}", f"data.train.loop={loop}", "evaluate=False",
+               "enable_tensorboard=False"]
+    return workdir, options
+
+
+def run_scannet_test(device, model, workdir, options=()):
+    """Whole-scene testing of the val room written by :func:`scannet_setup`
+    through the port's entry point with the ScanNet config's test_cfg (no
+    crop, 10 TTA views: anisotropic RandomScale, then with RandomFlip(p=1);
+    GridSample at 0.02 m in test mode), with ``model``'s weights and the
+    KEY=VALUE ``options``. Returns (result dict, votes, views)."""
+    from ao_tpu_torch.tools.test import main as test_main
+    from ao_tpu_torch.utils import Config
+
+    torch.save(model.state_dict(), os.path.join(workdir, "model.pt"))
+    result = test_main([
+        "--config-file", SCANNET_CONFIG, "--device", str(device), "--options",
+        f"weight={os.path.join(workdir, 'model.pt')}",
+        f"save_path={os.path.join(workdir, 'exp_test')}",
+        f"data.test.data_root={os.path.join(workdir, 'scannet')}", *options])
+    votes = np.load(os.path.join(workdir, "exp_test", "result",
+                                 "scene0000_00_pred.npy"))
+    views = len(Config.fromfile(SCANNET_CONFIG).data.test.test_cfg.aug_transform)
+    return result, votes, views
+
+
+def run_scannet_train(device, options):
+    """Training on the ScanNet config through the port's entry point."""
+    from ao_tpu_torch.tools.train import main as train_main
+
+    return train_main(["--config-file", SCANNET_CONFIG, "--device", str(device),
+                       "--options", *options])
+
+
+def check_scannet_train(trainer, steps):
+    """Every step's loss and gradient norm finite; each step's lr is
+    OneCycle's (the config's max_lr, pct_start, div factors over the run's
+    total steps) to 1e-12 relative; returns the steps whose batch Mix3D
+    merged (fewer scenes than the batch size)."""
+    from ao_tpu_torch.utils.scheduler import onecycle_lr
+
+    hist, sched = trainer.history, trainer.cfg.scheduler
+    if len(hist) != steps:
+        raise RuntimeError(f"{len(hist)} ScanNet train steps, expected {steps}")
+    for i, r in enumerate(hist):
+        if not (np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"])):
+            raise RuntimeError(f"ScanNet step {i}: non-finite loss or gradient {r}")
+        lr = onecycle_lr(i, trainer.total_steps, sched.max_lr, sched.pct_start,
+                         sched.div_factor, sched.final_div_factor)
+        if abs(r["lr"] - lr) > 1e-12 * lr:
+            raise RuntimeError(f"ScanNet step {i}: lr {r['lr']} is not "
+                               f"OneCycle's {lr}")
+    return [i for i, r in enumerate(hist) if r["scenes"] < trainer.cfg.batch_size]
+
+
+def instance_of(name, args):
+    """The new instance of the ScanNet config a kernel call runs, or None:
+    K1 at k=8, a GVA kernel at S=8 (the patch embed) or at C=512."""
+    if name == "knn_window":
+        return "k=8" if args[5] == 8 else None
+    qrow, idx = args[1], args[2]
+    if idx.shape[-1] == 8:
+        return "S=8"
+    return "C=512" if qrow.shape[-1] - 7 == 512 else None
+
+
+class InstanceLaunches:
+    """While active, counts the calls on CUDA tensors of each new instance
+    (:func:`instance_of`), each of which launches its kernel once. A
+    wrapper counts its launches on its module's attribute, which is a shim
+    while this is active; after every call the shims' counts move to the
+    wrappers' own, so these count as they would without the shims
+    (:func:`_wrappers` reads them through the shims)."""
+
+    def __init__(self):
+        self.counts = {}
+        self._undo = []
+
+    def _flush(self):
+        for module, attr, fn in self._undo:
+            shim = getattr(module, attr)
+            fn.launches += shim.launches
+            shim.launches = 0
+
+    def __enter__(self):
+        from ao_tpu_torch.models.point_transformer_v2 import ptv2m2
+        from ao_tpu_torch.ops import gva
+        from ao_tpu_torch.ops import knn_spatial as ks
+
+        for module, attr in ((ks, "knn_window"), (ptv2m2, "gva_eval"),
+                             (gva, "gva_eval"), (gva, "gva_pos"),
+                             (gva, "gva_stats"), (gva, "gva_bwd")):
+            fn = getattr(module, attr)
+
+            def rec(*args, _fn=fn, _name=attr):
+                inst = instance_of(_name, args)
+                if inst is not None and args[0].is_cuda:
+                    key = f"{_name}[{inst}]"
+                    self.counts[key] = self.counts.get(key, 0) + 1
+                try:
+                    return _fn(*args)
+                finally:
+                    self._flush()
+
+            rec.__wrapped__ = fn
+            rec.launches = 0
+            setattr(module, attr, rec)
+            self._undo.append((module, attr, fn))
+        return self
+
+    def __exit__(self, *exc):
+        for module, attr, fn in reversed(self._undo):
+            setattr(module, attr, fn)
+        self._undo.clear()
+
+
+def scannet_kernel_phase(trainer, batch, t0):
+    """One ScanNet train step with every kernel wrapper captured, then the
+    calls of the config's new instances (:func:`instance_of`) held against
+    their plain versions and timed, on the path's own arguments."""
+    from ao_tpu_torch.ops import gva as gva_mod
+    from ao_tpu_torch.ops import knn_spatial as ks
+
+    cap = Capture()
+    cap.wrap(ks, "knn_window", "knn_window")
+    for name in ("gva_pos", "gva_stats", "gva_eval", "gva_bwd"):
+        cap.wrap(gva_mod, name, name)
+    try:
+        m = trainer.train_step(batch)
+        torch.cuda.synchronize()
+    finally:
+        cap.restore()
+    if not (torch.isfinite(m["loss"]) and torch.isfinite(m["grad_norm"])):
+        raise RuntimeError("non-finite loss or gradient on the ScanNet batch")
+    log(t0, f"captured ScanNet train kernel inputs, (B, N) "
+            f"{tuple(batch['mask'].shape)}, loss {float(m['loss']):.4f}")
+    cap.calls = {key: call for key, call in cap.calls.items()
+                 if instance_of(call[0], call[2]) is not None}
+    names = [f"{name}[{instance_of(name, args)}]"
+             for name, _, args in cap.calls.values()]
+    rows = hold_captured(cap, "scannet")
+    for r, name in zip(rows, names):
+        r["instance"] = name
+    want = {"knn_window[k=8]", "gva_eval[S=8]", "gva_pos[S=8]",
+            "gva_stats[S=8]", "gva_bwd[S=8]", "gva_eval[C=512]",
+            "gva_stats[C=512]", "gva_bwd[C=512]"}
+    missing = want - {r["instance"] for r in rows}
+    if missing:
+        raise RuntimeError(f"new instances never called: {sorted(missing)}")
+    return rows
+
+
+def scannet_phase(device, seed, t0, card="", batch_size=4, steps=3,
+                  test=True, extra=SCANNET_BF16):
+    """The ScanNet PT-v2m2 config at full width with the KEY=VALUE
+    overrides ``extra`` (by default bf16 compute): whole-scene testing of a
+    synthetic room (10 TTA views), the new kernel instances held against
+    their plain versions, then ``steps`` train steps at ``batch_size``
+    through the port's entry point (Mix3D at the config's mix_prob,
+    OneCycle); the test and the train run each driven with the launch
+    counts set to 0 just before and read just after (with f32 compute the
+    train run needs only K1 and K2). Returns (kernel rows, launches by
+    path, instance launches by path, launches per train step, instance
+    launches per train step)."""
+    from ao_tpu_torch.models import build_model
+    from ao_tpu_torch.utils import Config, DictAction
+
+    t_phase = time.perf_counter()
+    rooms = [make_scannet_room(s, size) for s, size in SCANNET_ROOMS]
+    test_room = make_scannet_room(*SCANNET_TEST_ROOM)
+    workdir, options = scannet_setup(rooms, test_room, batch_size=batch_size,
+                                     max_steps=steps, seed=seed)
+    options += list(extra)
+    log(t0, f"ScanNet rooms: {[len(r['coord']) for r in rooms]} train, "
+            f"{len(test_room['coord'])} test points")
+    launches, inst, rows = {}, {}, []
+    if test:
+        cfg = Config.fromfile(SCANNET_CONFIG)
+        cfg.merge_from_dict({k: DictAction._parse_value(v) for k, v in
+                             (o.partition("=")[::2] for o in extra)})
+        torch.manual_seed(seed)
+        model = build_model(dict(cfg.model)).to(device).eval()
+        with InstanceLaunches() as il:
+            (result, votes, views), launches["scannet_test"] = _drive(
+                SLICE_KERNELS, lambda: run_scannet_test(device, model, workdir,
+                                                        extra))
+        inst["scannet_test"] = dict(il.counts)
+        check_votes(votes, views, num_classes=20)
+        scene = result["scenes"][0]
+        print(f"scannet test: {scene['fragments']} fragments in batches (B, N) "
+              f"{scene['batches']}; scene {scene['seconds']:.2f} s; launches "
+              f"{launches['scannet_test']}, new instances "
+              f"{inst['scannet_test']}; mIoU {result['mIoU']:.4f} (random "
+              f"weights)", flush=True)
+        del model
+        torch.cuda.empty_cache()
+        log(t0, "ScanNet test done")
+
+        trainer = build_trainer(options + [
+            f"save_path={os.path.join(workdir, 'exp_kernels')}"], device,
+            SCANNET_CONFIG)
+        it = iter(trainer.train_loader)
+        batch = next(it)
+        del it
+        rows = scannet_kernel_phase(trainer, batch, t0)
+        del trainer
+        torch.cuda.empty_cache()
+        log(t0, "ScanNet kernel phase done")
+
+    torch.cuda.reset_peak_memory_stats()
+    fused = "compute_dtype=bfloat16" in " ".join(extra)
+    with StepLaunches() as step_count, InstanceLaunches() as il:
+        trainer, launches["scannet_train"] = _drive(
+            TRAIN_KERNELS if fused else ("knn_window", "merge_topk"),
+            lambda: run_scannet_train(device, options))
+    inst["scannet_train"] = dict(il.counts)
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    mixed = check_scannet_train(trainer, steps)
+    hist = trainer.history
+    print(f"scannet train ({' '.join(extra) or 'the config as written'}): "
+          f"batch {batch_size}, scenes/step {[r['scenes'] for r in hist]} "
+          f"points/step {[r['points'] for r in hist]}; Mix3D merged steps "
+          f"{mixed} ({len(mixed)} of {steps}); lr {[r['lr'] for r in hist]} "
+          f"(OneCycle over {trainer.total_steps} steps)", flush=True)
+    print(f"scannet train: losses {[round(r['loss'], 5) for r in hist]} "
+          f"grad_norms {[round(r['grad_norm'], 4) for r in hist]} "
+          f"pool_overflow {[r['pool_overflow'] for r in hist]}", flush=True)
+    step_s = [r["step_seconds"] for r in hist]
+    print(f"scannet train: step seconds {[round(x, 4) for x in step_s]} "
+          f"(median of steps 2-{steps}: {np.median(step_s[1:]):.4f} s), data "
+          f"wait {[round(r['data_seconds'], 4) for r in hist]}; peak memory "
+          f"{peak_gb:.2f} GiB; launches per step {step_count.per_step()}, "
+          f"new instances {inst['scannet_train']} ({steps} steps); card "
+          f"{card}", flush=True)
+    if not mixed and batch_size % 2 == 0 and trainer.cfg.get("mix_prob", 0) > 0:
+        raise RuntimeError("no ScanNet train step was mixed by Mix3D")
+    per_step_inst = {k: v / steps for k, v in inst["scannet_train"].items()}
+    del trainer
+    torch.cuda.empty_cache()
+    log(t0, f"ScanNet phase done in {time.perf_counter() - t_phase:.1f} s")
+    return rows, launches, inst, step_count.per_step(), per_step_inst
+
+
 def _wrappers():
+    """The kernels' wrappers (the wrapper itself where a counting shim of
+    :class:`InstanceLaunches` stands in its place)."""
     from ao_tpu_torch.ops import gva, knn_spatial
 
-    return {"knn_window": knn_spatial.knn_window,
-            "merge_topk": knn_spatial.merge_topk_probes,
-            "gva_eval": gva.gva_eval,
-            "gva_pos": gva.gva_pos, "gva_stats": gva.gva_stats,
-            "gva_bwd": gva.gva_bwd}
+    ws = {"knn_window": knn_spatial.knn_window,
+          "merge_topk": knn_spatial.merge_topk_probes,
+          "gva_eval": gva.gva_eval,
+          "gva_pos": gva.gva_pos, "gva_stats": gva.gva_stats,
+          "gva_bwd": gva.gva_bwd}
+    return {n: getattr(w, "__wrapped__", w) for n, w in ws.items()}
 
 
 class StepLaunches:
@@ -1368,21 +1719,43 @@ def run(device, seed, t0, room_size=(4.8, 4.0, 2.6), train_steps=5, card="",
     real_launches, real_per_step = ao_phase(device, seed, t0, rooms, room,
                                             train_steps_count.per_step(), card)
 
-    # one entry per kernel: its heaviest captured shape
+    (sc_rows, sc_launches, sc_inst, sc_per_step,
+     sc_inst_per_step) = scannet_phase(device, seed, t0, card)
+
+    # one entry per kernel: its heaviest captured shape of the S3DIS paths
     kernels = []
     for name, info in KERNEL_INFO.items():
         row = max((r for r in rows if r["name"] == name),
                   key=lambda r: r["bound_ms"])
         by_path = {"test": slice_launches[name], "train": train_launches[name],
-                   "real": real_launches[name]}
+                   "real": real_launches[name],
+                   "scannet_test": sc_launches["scannet_test"][name],
+                   "scannet_train": sc_launches["scannet_train"][name]}
         kernels.append(dict(
             name=name, **info, launches=sum(by_path.values()),
             launches_by_path=by_path,
             launches_per_train_step=train_launches[name] / train_steps,
             launches_per_real_step=real_per_step[name],
+            launches_per_scannet_step=sc_per_step[name],
             max_abs_err=row["max_abs_err"], ms=row["ms"],
             device_ms=row["device_ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
             bound_by=row["bound_by"], library_ms=row["library_ms"],
+            shape=f"{row['phase']}: {row['shape']}"))
+    # and one per new instance of the ScanNet config, at its heaviest shape
+    for inst in sorted({r["instance"] for r in sc_rows}):
+        row = max((r for r in sc_rows if r["instance"] == inst),
+                  key=lambda r: r["bound_ms"])
+        by_path = {p: sc_inst[p].get(inst, 0) for p in sc_inst}
+        if sum(by_path.values()) <= 0:
+            raise RuntimeError(f"{inst} never launched on the ScanNet paths")
+        kernels.append(dict(
+            name=inst, **KERNEL_INFO[row["name"]],
+            launches=sum(by_path.values()), launches_by_path=by_path,
+            launches_per_scannet_step=sc_inst_per_step.get(inst, 0),
+            max_abs_err=row["max_abs_err"], ms=row["ms"],
+            device_ms=row["device_ms"], plain_ms=row["plain_ms"],
+            bound_ms=row["bound_ms"], bound_by=row["bound_by"],
+            library_ms=row["library_ms"],
             shape=f"{row['phase']}: {row['shape']}"))
     return kernels
 
@@ -1390,14 +1763,24 @@ def run(device, seed, t0, room_size=(4.8, 4.0, 2.6), train_steps=5, card="",
 def main():
     parser = argparse.ArgumentParser(description="port smoke run on one card")
     parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument(
+        "--scannet-batch", type=int, default=None, metavar="B",
+        help="run only the ScanNet config's train steps at batch B (the "
+             "config's own batch_size is 12), printing step seconds and peak "
+             "memory, and no kernel record")
+    parser.add_argument(
+        "--scannet-options", nargs="*", default=list(SCANNET_BF16),
+        metavar="KEY=VALUE",
+        help="config overrides of the ScanNet run (default: bf16 compute; "
+             "none: the config as written, f32)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA card (torch.cuda.is_available() is "
               "False)", file=sys.stderr)
         return 2
-    # a healthy run takes a minute or two: a hang becomes a traceback
+    # a healthy run takes about three minutes: a hang becomes a traceback
     # and a non-zero exit well inside any caller's time limit
-    faulthandler.dump_traceback_later(280, exit=True)
+    faulthandler.dump_traceback_later(480, exit=True)
     t0 = time.perf_counter()
     from ao_tpu_torch.ops import _native
 
@@ -1412,6 +1795,13 @@ def main():
     log(t0, f"kernels built: parallel nvcc, {built:.1f} s" if built is not None
         else f"kernels reused from {_native.BUILD_DIR}")
 
+    if args.scannet_batch is not None:
+        scannet_phase(torch.device("cuda"), args.seed, t0, card,
+                      batch_size=args.scannet_batch, test=False,
+                      extra=args.scannet_options)
+        faulthandler.cancel_dump_traceback_later()
+        print(f"card: {card}", flush=True)
+        return 0
     kernels = run(torch.device("cuda"), args.seed, t0, card=card)
     faulthandler.cancel_dump_traceback_later()
     print(f"card: {card}", flush=True)

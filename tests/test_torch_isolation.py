@@ -2,10 +2,12 @@
 ao_tpu (nor flax or optax), build no extension through
 torch.utils.cpp_extension, and the smoke script's slice phase, train
 phase (the hook-driven trainer, with its evaluation of a validation room
-and its checkpoints) and AO phase (PP2S in oracle mode, a REAL run whose
+and its checkpoints), AO phase (PP2S in oracle mode, a REAL run whose
 epoch ends with a refinement round over oracle masks in a fork pool, and
-the neural SAM's embeddings and decodes at SamConfig.tiny()) run end to
-end (on the CPU, at a tiny size) with JAX and ao_tpu made unimportable."""
+the neural SAM's embeddings and decodes at SamConfig.tiny()) and ScanNet
+phase (ScanNetDataset, its transforms, Mix3D, OneCycle, the tester's
+10 views) run end to end (on the CPU, at a tiny size) with JAX and ao_tpu
+made unimportable."""
 
 import os
 import re
@@ -48,10 +50,25 @@ chip_smoke.check_real(real, record, workdir + "/sam_labels")
 sam = chip_smoke.run_sam(workdir, record["baskets"][0], "cpu",
                          model_type="tiny", size=64)
 assert sam["masks"] > 0 and len(sam["set_image_ms"]) == 2
+sc_rooms = [chip_smoke.make_scannet_room(s, (1.0, 0.9, 0.6), 0.05)
+            for s in (1, 2, 3)]
+workdir, options = chip_smoke.scannet_setup(
+    sc_rooms[:2], sc_rooms[2], batch_size=2, max_steps=2, workers=0)
+sc_backbone = dict(backbone, enc_channels=(16, 32, 64, 64),
+                   enc_groups=(2, 4, 8, 8), dec_channels=(16, 16, 32, 64),
+                   dec_groups=(2, 2, 4, 8), enc_depths=(1, 1, 1, 1))
+sc_options = [f"model.backbone.{k}={v!r}" for k, v in sc_backbone.items()]
+sc = chip_smoke.run_scannet_train("cpu", options + sc_options + [
+    "pad_multiple=512", "max_points=4096"])
+chip_smoke.check_scannet_train(sc, 2)
+sc_res, sc_votes, sc_views = chip_smoke.run_scannet_test(
+    "cpu", sc.model, workdir, sc_options + ["pad_multiple=512"])
+chip_smoke.check_votes(sc_votes, sc_views, num_classes=20)
 assert not any(k == "jax" or k.startswith(("jax.", "ao_tpu.", "flax", "optax"))
                for k, v in sys.modules.items() if v is not None)
 print("ISOLATED", res["scenes"][0]["fragments"], trainer.history[0]["loss"],
-      real.refine_history[0]["num_updated"], sam["prompts"])
+      real.refine_history[0]["num_updated"], sam["prompts"],
+      sc.history[-1]["loss"], sc_res["scenes"][0]["fragments"])
 """
 
 
@@ -83,7 +100,9 @@ def test_port_sources_name_no_jax_no_ao_tpu_no_cpp_extension():
                 "models/sam/convert.py", "models/sam/predictor.py",
                 "engines/label_eval.py", "engines/train_real.py",
                 "utils/comm.py", "tools/pp2s.py", "tools/train_pp2s.py",
-                "tools/train_real.py", "tools/evaluate_labels.py"):
+                "tools/train_real.py", "tools/evaluate_labels.py",
+                "datasets/scannet.py", "datasets/collate.py",
+                "datasets/transform.py", "models/losses/lovasz.py"):
         assert f"ao_tpu_torch/{mod}" in names
     hits = []
     for f in files:

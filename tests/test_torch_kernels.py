@@ -25,12 +25,14 @@ _BIG = 1e30
 
 @pytest.mark.parametrize(
     "tile_q,window,k",
-    [(128, 640, 16), (128, 512, 16), (64, 512, 16), (512, 640, 3)],
+    [(128, 640, 16), (128, 512, 16), (64, 512, 16), (512, 640, 3),
+     (128, 640, 8)],
 )
 def test_knn_window_plain_matches_pallas(tile_q, window, k):
     """Identical ids on tie-free inputs and d2 within 1e-5 relative, at the
     (tile_q, window) pairs of the S3DIS path: self graph (128, 640) /
-    (128, 512) / (64, 512), unpool cross search (512, 512 + 128)."""
+    (128, 512) / (64, 512), unpool cross search (512, 512 + 128); and the
+    ScanNet patch embed's k = 8 self graph at (128, 640)."""
     rng = np.random.default_rng(tile_q + window + k)
     B, T = 2, 2
     Nk, Nqp = window + 384, T * tile_q
@@ -83,7 +85,8 @@ def _lattice_case(kind, tile_q, window, k, seed):
 
 @pytest.mark.parametrize("kind", ["ties", "few_valid", "all_invalid"])
 @pytest.mark.parametrize(
-    "tile_q,window,k", [(128, 640, 16), (64, 512, 16), (512, 640, 3)])
+    "tile_q,window,k",
+    [(128, 640, 16), (64, 512, 16), (512, 640, 3), (128, 640, 8)])
 def test_knn_window_plain_matches_pallas_ties_and_invalid_keys(
         kind, tile_q, window, k):
     """The semantics K1 keeps on the card: bit-identical scores against the
@@ -341,7 +344,7 @@ def _slab_ref(c, C, G, N, TQ, J):
     return np.asarray(gs.gva_slab_core_eval(
         kv_pad, jnp.asarray(c["idx"] + c["W"], jnp.int32), qrow,
         jnp.asarray(c["valid"]).astype(bf), Wp1, bp1, gp, bp, Wp2, bp2, wp,
-        rp, rw, c["Np"], 16, C, G, TQ, J, interpret=True,
+        rp, rw, c["Np"], c["idx"].shape[-1], C, G, TQ, J, interpret=True,
     ))
 
 
@@ -361,23 +364,34 @@ def _gathered_ref(c, C, G, TQ):
     ))
 
 
-@pytest.mark.parametrize(
-    "C,G,N", [(48, 6, 300), (96, 12, 300), (192, 24, 160), (384, 48, 96)])
-def test_gva_eval_plain_matches_slab_kernel(C, G, N):
+@pytest.mark.parametrize("C,G,N,S", [
+    pytest.param(48, 6, 300, 16, id="48-6-300"),
+    pytest.param(96, 12, 300, 16, id="96-12-300"),
+    pytest.param(192, 24, 160, 16, id="192-24-160"),
+    pytest.param(384, 48, 96, 16, id="384-48-96"),
+    pytest.param(48, 6, 300, 8, id="48-6-300-S8")])
+def test_gva_eval_plain_matches_slab_kernel(C, G, N, S):
     """K3a: sorted-slab call mode against gva_slab_core_eval, at the slab
-    tilings of the S3DIS stages (C=192 and 384 at a narrowed N)."""
+    tilings of the S3DIS stages (C=192 and 384 at a narrowed N), and with
+    the ScanNet patch embed's S = 8 neighbours."""
     TQ, J = _slab_tiling(C)
-    c = _gva_case(C, G, N, TQ, J, seed=C)
+    c = _gva_case(C, G, N, TQ, J, seed=C, S=S)
     _assert_close(_port_out(c), _slab_ref(c, C, G, N, TQ, J))
 
 
-@pytest.mark.parametrize(
-    "C,G,N", [(48, 6, 256), (96, 12, 192), (192, 24, 96), (384, 48, 64)])
-def test_gva_eval_plain_matches_gathered_kernel(C, G, N):
+@pytest.mark.parametrize("C,G,N,S", [
+    pytest.param(48, 6, 256, 16, id="48-6-256"),
+    pytest.param(96, 12, 192, 16, id="96-12-192"),
+    pytest.param(192, 24, 96, 16, id="192-24-96"),
+    pytest.param(384, 48, 64, 16, id="384-48-64"),
+    pytest.param(48, 6, 256, 8, id="48-6-256-S8"),
+    pytest.param(512, 64, 48, 16, id="512-64-48")])
+def test_gva_eval_plain_matches_gathered_kernel(C, G, N, S):
     """K3b: gathered-rows call mode against gva_core_eval (C=384: the small
-    batch's gathered deepest stage)."""
+    batch's gathered deepest stage; S=8: the ScanNet patch embed's
+    neighbours; C=512: the ScanNet config's deepest stage, G=64)."""
     TQ = _gathered_tq(C)
-    c = _gva_case(C, G, N, TQ, J=3, seed=C + 1)
+    c = _gva_case(C, G, N, TQ, J=3, seed=C + 1, S=S)
     _assert_close(_port_out(c), _gathered_ref(c, C, G, TQ))
 
 
@@ -408,7 +422,7 @@ def test_gva_eval_plain_ragged_queries_and_empty_slots(mode):
 @pytest.mark.parametrize("C,G", [(64, 8), (48, 12), (768, 96)])
 def test_gva_eval_raises_outside_its_instances(C, G):
     """Off the CPU the K3 wrapper takes only the kernel's instances
-    (C in 48, 96, 192, 384 with G = C / 8): other widths raise before any
+    (C in 48, 96, 192, 384, 512 with G = C / 8): other widths raise before any
     device work, never falling back to the plain version. Tensors on the
     meta device stand for the card's here."""
     B, N, S = 1, 32, 16

@@ -2,13 +2,18 @@
 batch-statistic folds, K6 gva_bwd and the GVATrain function around them)
 against the TPU kernels of ao_tpu run in Pallas interpret mode, in both
 call modes: slab (gva_slab.compute_pos_moments_slab / gva_slab_core) and
-gathered (gva_fused.compute_pos_moments / gva_core).
+gathered (gva_fused.compute_pos_moments / gva_core), on the case of
+tests/test_gva_slab.py and at the ScanNet config's new shapes: its patch
+embed's S = 8 at C = 48 (both modes) and its C = 512 stage (G = 64,
+gathered, as the card runs it).
 
 On the CPU every wrapper runs its kernel's plain version; chip_smoke.py
 holds the CUDA kernels against the same plain versions on the card. The
 hand-written backward is also checked against autograd of the plain
 forward composition in float64, where the plain versions skip the bf16
 rounding and evaluate the exact algebra."""
+
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -20,16 +25,29 @@ from ao_tpu.ops.pallas import gva_fused as gf
 from ao_tpu.ops.pallas import gva_slab as gs
 from ao_tpu_torch.ops import gva as tg
 
-# the case of tests/test_gva_slab.py: every edge inside its query tile's slab
-B, N, S, C, G, TQ, J = 2, 90, 8, 16, 4, 32, 3
-W = (J - 1) // 2 * TQ
-NP = -(-N // TQ) * TQ
+# (B, N, S, C, G, TQ, J) of the cases: "base" is the case of
+# tests/test_gva_slab.py (every edge inside its query tile's slab); "S8-C48"
+# the ScanNet patch embed's neighbours and width; "C512" its C = 512 stage
+# at a few dozen queries (the JAX package's gathered tiling, TQ = 32)
+SHAPES = {"base": (2, 90, 8, 16, 4, 32, 3), "S8-C48": (1, 90, 8, 48, 6, 32, 3),
+          "C512": (1, 40, 16, 512, 64, 32, 3)}
+B, N, S, C, G, TQ, J = SHAPES["base"]
 PNAMES = ("Wp1", "bp1", "gp", "bp", "Wp2", "bp2", "W1", "b1", "gw", "bw",
           "W2", "b2")
+# (mode, shape) of the tests held at every shape; the base shape's cases
+# keep their ids
+MODES = [pytest.param("slab", "base", id="slab"),
+         pytest.param("gathered", "base", id="gathered"),
+         pytest.param("slab", "S8-C48", id="slab-S8-C48"),
+         pytest.param("gathered", "S8-C48", id="gathered-S8-C48"),
+         pytest.param("gathered", "C512", id="gathered-C512")]
 
 
-@pytest.fixture(scope="module")
-def case():
+@functools.lru_cache(maxsize=None)
+def make_case(shape="base"):
+    B, N, S, C, G, TQ, J = SHAPES[shape]
+    W = (J - 1) // 2 * TQ
+    NP = -(-N // TQ) * TQ
     rng = np.random.default_rng(7)
     c = dict(
         k=rng.normal(size=(B, N, C)) * 0.5, v=rng.normal(size=(B, N, C)) * 0.5,
@@ -46,15 +64,23 @@ def case():
     valid[:, N:] = False
     mask = rng.random((B, NP)) < 0.95
     mask[:, N:] = False
-    p = dict(Wp1=((3, C), 0.3), bp1=((C,), 0.1), Wp2=((C, C), 0.2),
-             bp2=((C,), 0.1), W1=((C, G), 0.3), b1=((G,), 0.1),
-             W2=((G, G), 0.4), b2=((G,), 0.1))
+    # the weights' scales shrink with the fan-in past the base case's
+    fc, fg = (16 / C) ** 0.5, (4 / G) ** 0.5
+    p = dict(Wp1=((3, C), 0.3), bp1=((C,), 0.1), Wp2=((C, C), 0.2 * fc),
+             bp2=((C,), 0.1), W1=((C, G), 0.3 * fc), b1=((G,), 0.1),
+             W2=((G, G), 0.4 * fg), b2=((G,), 0.1))
     p = {k: (rng.normal(size=s) * m).astype(np.float32) for k, (s, m) in p.items()}
     p.update(gp=np.full(C, 1.1, np.float32), bp=np.full(C, 0.05, np.float32),
              gw=np.full(G, 0.9, np.float32), bw=np.full(G, -0.02, np.float32))
     c.update(idx=idx, valid=valid, mask=mask, p=p,
-             cw=rng.normal(size=G).astype(np.float32))
+             cw=rng.normal(size=G).astype(np.float32),
+             B=B, N=N, S=S, C=C, G=G, TQ=TQ, J=J, W=W, NP=NP)
     return c
+
+
+@pytest.fixture(scope="module")
+def case():
+    return make_case()
 
 
 # ---------------------------------------------------------------- JAX side
@@ -74,6 +100,7 @@ def _jax_rows(c, k, v, q):
 def jax_core(c, mode, k, v, q, pp):
     """(out, weight-BN stats, pe-BN stats) of gva_slab_core / gva_core in
     interpret mode, position moments computed in-kernel."""
+    B, N, S, C, G, TQ, J, W, NP = (c[x] for x in "B N S C G TQ J W NP".split())
     src, qrow, validb = _jax_rows(c, k, v, q)
     wp = (pp["W1"], pp["b1"], pp["gw"], pp["bw"], pp["W2"], pp["b2"])
     pe = (pp["Wp1"], pp["bp1"], pp["gp"], pp["bp"], pp["Wp2"], pp["bp2"])
@@ -89,6 +116,7 @@ def jax_core(c, mode, k, v, q, pp):
 
 
 def jax_pos_moments(c, mode):
+    B, N, S, C, G, TQ, J, W, NP = (c[x] for x in "B N S C G TQ J W NP".split())
     src, qrow, validb = _jax_rows(c, *(jnp.asarray(c[x]) for x in "kvq"))
     if mode == "slab":
         return gs.compute_pos_moments_slab(
@@ -117,10 +145,11 @@ def port_train(c, k, v, q, p, dtype=torch.bfloat16):
     return tg.gva_train(src, qrow, idx, valid, p)
 
 
-def head_np(out, mu_w, var_w, cw):
-    """sin of out plus a linear function of the weight-BN statistics, so
-    that the statistics' cotangent path is exercised."""
-    return (jnp.sum(jnp.sin(out[:, :N])) + jnp.sum(mu_w * cw)
+def head_np(out, mu_w, var_w, cw, n=N):
+    """sin of out (its first n queries) plus a linear function of the
+    weight-BN statistics, so that the statistics' cotangent path is
+    exercised."""
+    return (jnp.sum(jnp.sin(out[:, :n])) + jnp.sum(mu_w * cw)
             + jnp.sum(var_w * cw * 0.5))
 
 
@@ -132,11 +161,12 @@ def _close(got, ref, tol):
     return err
 
 
-@pytest.mark.parametrize("mode", ["slab", "gathered"])
-def test_pos_moments_plain_matches_pallas(case, mode):
+@pytest.mark.parametrize("mode,shape", MODES)
+def test_pos_moments_plain_matches_pallas(mode, shape):
     """K4: the plain moments against the Pallas pos kernel's (the same f32
     positions summed in another order: 1e-5 relative, measured 2.1e-7;
     the count exact)."""
+    case = make_case(shape)
     jm = jax_pos_moments(case, mode)
     src, qrow, idx, valid = port_rows(
         case, *(torch.from_numpy(case[x]) for x in "kvq"))
@@ -173,12 +203,14 @@ def test_pos_moments_plain_matches_pallas_sparse_edges(case, mode, edges):
     assert float(tm[2]) == float(jm[2]) == float(valid.sum())
 
 
-@pytest.mark.parametrize("mode", ["slab", "gathered"])
-def test_forward_and_stats_match_pallas(case, mode):
+@pytest.mark.parametrize("mode,shape", MODES)
+def test_forward_and_stats_match_pallas(mode, shape):
     """K5 and K3 with batch-statistic folds inside GVATrain: the output
     rows, the weight-BN (mean, var, count) and the pe-BN (mean, var,
     count) against gva_slab_core / gva_core (measured: out 1.4e-7 x scale,
     statistics up to 2.4e-7 relative, counts exact)."""
+    case = make_case(shape)
+    N = case["N"]
     kvq = [jnp.asarray(case[x]) for x in "kvq"]
     pp = {n: jnp.asarray(a) for n, a in case["p"].items()}
     jo, jsw, jsp = jax_core(case, mode, *kvq, pp)
@@ -198,8 +230,8 @@ def test_forward_and_stats_match_pallas(case, mode):
     assert float(tsp[2]) == float(jsp[2])
 
 
-@pytest.mark.parametrize("mode", ["slab", "gathered"])
-def test_gradients_match_jax_grad(case, mode):
+@pytest.mark.parametrize("mode,shape", MODES)
+def test_gradients_match_jax_grad(mode, shape):
     """GVATrain's backward (K6 plain + the host algebra) against jax.grad
     of the TPU kernels' custom VJP, w.r.t. the row inputs and all twelve
     parameters. The JAX package's own slab-vs-gathered bands are 0.08
@@ -207,12 +239,14 @@ def test_gradients_match_jax_grad(case, mode):
     per-edge row gradients to bf16, so rows get 0.02 here and parameters
     0.01 (measured: rows up to 7.6e-3, parameters up to 2.1e-3, both in
     gathered mode; slab parameters below 1e-5)."""
+    case = make_case(shape)
+    N = case["N"]
     cw = jnp.asarray(case["cw"])
 
     def loss(k, v, q, *plist):
         pp = dict(zip(PNAMES, plist))
         out, (mu, var, _), _ = jax_core(case, mode, k, v, q, pp)
-        return head_np(out, mu, var, cw)
+        return head_np(out, mu, var, cw, N)
 
     args = [jnp.asarray(case[x]) for x in "kvq"] + [
         jnp.asarray(case["p"][n]) for n in PNAMES]
