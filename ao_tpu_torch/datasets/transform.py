@@ -1,10 +1,11 @@
-"""Host-side point-cloud transforms of the S3DIS and ScanNet train and test
-paths.
+"""Host-side point-cloud transforms of the S3DIS, ScanNet, SemanticKITTI
+and nuScenes train and test paths.
 
-Port of the transforms of ao_tpu/datasets/transform.py that the S3DIS and
-ScanNet PT-v2m2 configs name, with the same semantics (FNV-1a voxel
+Port of the transforms of ao_tpu/datasets/transform.py that the PT-v2
+configs of those datasets name, with the same semantics (FNV-1a voxel
 hashing, train and test GridSample modes, random sphere crops, dropout,
-rotations, elastic distortion; ScanNet's limited-annotation
+rotations, elastic distortion, the LiDAR range clip; ScanNet's
+limited-annotation
 ``sampled_index`` kept through dropout and grid sampling). Arrays
 stay numpy until ``collate_fn``; randomness comes from a
 ``torch.Generator`` (the default one unless a transform is given its own).
@@ -250,6 +251,21 @@ class ChromaticJitter:
             noise = _normal((n, 3), self.generator) * self.std * 255
             data_dict["color"][:, :3] = np.clip(
                 data_dict["color"][:, :3] + noise, 0, 255)
+        return data_dict
+
+
+@TRANSFORMS.register_module()
+class PointClip:
+    """Clip ``coord`` to the box ``point_cloud_range`` = (x_min, y_min,
+    z_min, x_max, y_max, z_max): points outside move onto its faces."""
+
+    def __init__(self, point_cloud_range=(-80, -80, -3, 80, 80, 1)):
+        self.range = point_cloud_range
+
+    def __call__(self, data_dict):
+        if "coord" in data_dict:
+            data_dict["coord"] = np.clip(
+                data_dict["coord"], a_min=self.range[:3], a_max=self.range[3:])
         return data_dict
 
 

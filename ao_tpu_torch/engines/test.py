@@ -6,7 +6,9 @@ complementary GridSample fragments. Fragments are batched ``fb`` at a
 time into one padded forward on the tester's device; softmax
 probabilities are added onto a full-resolution (n, K) accumulator on the
 host and the argmax is scored against the full-resolution labels.
-Per-scene votes are cached as ``<name>_pred.npy`` for resume.
+Per-scene votes are cached as ``<name>_pred.npy`` for resume. With
+``submit=True`` in the config each scene's prediction is also written in
+its benchmark's submission format (:meth:`SemSegTester.save_submission`).
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ import numpy as np
 import torch
 
 from ..datasets import build_dataset, collate_fn
+from ..datasets.scannet_meta import VALID_CLASS_IDS_20, VALID_CLASS_IDS_200
 from ..models import build_model
 from ..models.point_transformer_v2.convert import load_jax_ckpt, load_jax_npz
 from ..utils import AverageMeter, Registry, get_root_logger, intersection_and_union
@@ -137,6 +140,7 @@ class SemSegTester(TesterBase):
             union_meter.update(union)
             target_meter.update(target)
             scenes.append(record)
+            self.save_submission(cfg, save_path, name, seg_pred, dataset)
             mask_v = union != 0
             iou = inter[mask_v] / (union[mask_v] + 1e-10)
             acc = inter.sum() / (target.sum() + 1e-10) if target.sum() > 0 else 1.0
@@ -165,3 +169,42 @@ class SemSegTester(TesterBase):
                 f"{iou_class[i]:.4f}/{acc_class[i]:.4f}"
             )
         return dict(mIoU=m_iou, mAcc=m_acc, allAcc=all_acc, scenes=scenes)
+
+    @staticmethod
+    def save_submission(cfg, save_path, name, pred, dataset):
+        """Write one scene's predicted classes ``pred`` (n,) in its
+        benchmark's submission format under ``<save_path>/submit``, only when
+        the config sets ``submit`` (port of ao_tpu/engines/test.py:
+        SemSegTester.save_submission): ScanNet(200) ``<name>.txt``, one raw
+        class id a line; SemanticKITTI
+        ``sequences/<seq>/predictions/<frame>.label``, uint32 through
+        ``learning_map_inv``; nuScenes ``lidarseg/test/<token>_lidarseg.bin``,
+        uint8 of ``pred + 1``."""
+        if not cfg.get("submit", False):
+            return
+        dtype = cfg.get("dataset_type", "")
+        if dtype in ("ScanNetDataset", "ScanNet200Dataset"):
+            ids = (VALID_CLASS_IDS_200 if dtype == "ScanNet200Dataset"
+                   else VALID_CLASS_IDS_20)
+            sub_dir = os.path.join(save_path, "submit")
+            os.makedirs(sub_dir, exist_ok=True)
+            np.savetxt(os.path.join(sub_dir, f"{name}.txt"),
+                       np.asarray(ids)[pred].reshape(-1, 1), fmt="%d")
+        elif dtype == "SemanticKITTIDataset":
+            seq, frame = name.split("_")
+            sub_dir = os.path.join(save_path, "submit", "sequences", seq,
+                                   "predictions")
+            os.makedirs(sub_dir, exist_ok=True)
+            inv = cfg.get("learning_map_inv")
+            out = pred.astype(np.uint32)
+            if inv:
+                lut = np.zeros(max(inv.keys()) + 1, np.uint32)
+                for k, v in inv.items():
+                    lut[k] = v
+                out = lut[np.clip(out, 0, len(lut) - 1)]
+            out.tofile(os.path.join(sub_dir, f"{frame}.label"))
+        elif dtype == "NuScenesDataset":
+            sub_dir = os.path.join(save_path, "submit", "lidarseg", "test")
+            os.makedirs(sub_dir, exist_ok=True)
+            (pred + 1).astype(np.uint8).tofile(
+                os.path.join(sub_dir, f"{name}_lidarseg.bin"))

@@ -38,7 +38,7 @@ import torch
 
 from ..datasets import build_dataset, point_collate_fn
 from ..models import build_criteria, build_model
-from ..models.utils import DropPath
+from ..models.utils import DropPath, Dropout
 from ..ops.knn import knn
 from ..utils import get_root_logger, intersection_and_union
 from ..utils.checkpoint import load_checkpoint, save_checkpoint
@@ -137,11 +137,12 @@ class Trainer(TrainerBase):
 
         self.model = build_model(dict(cfg.model)).to(self.device)
         self.criteria = build_criteria(cfg.model.get("criteria", []))
-        # stochastic depth draws on the device, from one seeded generator
+        # stochastic depth and attention dropout draw on the device, from
+        # one seeded generator
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(self.seed)
         for m in self.model.modules():
-            if isinstance(m, DropPath):
+            if isinstance(m, (DropPath, Dropout)):
                 m.generator = self.generator
         self.logger.info(
             f"Num params: {sum(p.numel() for p in self.model.parameters())}")

@@ -1,14 +1,21 @@
-"""Carry PT-v2m2 weights from the JAX package into the port.
+"""Carry PT-v2m1 / PT-v2m2 weights from the JAX package into the port.
 
 ``from_jax_variables`` maps the numpy arrays of a flax ``{params,
-batch_stats}`` tree of ao_tpu's PT-v2m2 onto the port's ``state_dict``,
-whose names are the reference torch model's. The mapping is a copy of
-ao_tpu/models/point_transformer_v2/convert.py:flax_to_torch_state_dict
+batch_stats}`` tree of ao_tpu's PT-v2 onto the port's ``state_dict``,
+whose names are the reference torch model's. The PT-v2m2 mapping is a copy
+of ao_tpu/models/point_transformer_v2/convert.py:flax_to_torch_state_dict
 (the port imports nothing of ao_tpu): flax ``Dense.kernel`` is (in, out)
 and torch ``Linear.weight`` (out, in), so every kernel transposes; the
-GVA's raw pe / weight-encoding parameters map onto its two MLPs. Given
-no batch statistics it maps a tree shaped like ``params`` alone, such as
-the gradients of ``jax.grad``, onto the port's parameter names.
+GVA's raw pe / weight-encoding parameters map onto its two MLPs. The
+legacy (PT-v2m1 / pe-multiplier) attention, which ao_tpu's converter does
+not name, maps its flax submodules (``linear_p_multiplier`` and
+``linear_p_bias`` MLPs, ``grouped_weight``, the weight encoding's Dense /
+PointBatchNorm) onto the reference PT-v2m1's names
+(``linear_p_multiplier.{0,1,3}``, ``weight_encoding.0.weight`` the
+GroupedLinear's (1, C)). Blocks of a model built with
+``enable_checkpoint`` (flax ``CheckpointBlock_j``) map as ``Block_j``.
+Given no batch statistics it maps a tree shaped like ``params`` alone,
+such as the gradients of ``jax.grad``, onto the port's parameter names.
 """
 
 from __future__ import annotations
@@ -65,6 +72,25 @@ class _Writer:
         self.out[tname] = v.T if transpose else v
 
 
+def _legacy_gva(w: _Writer, t, g):
+    """The legacy attention's pe MLPs and weight encoding (ao_tpu
+    ptv2m2.py:_legacy_attention, flax auto-names after q / k / v's
+    Dense_0-2 and PointBatchNorm_0-1)."""
+    for mlp in ("linear_p_multiplier", "linear_p_bias"):
+        if _has(w.params, g + (mlp,)):
+            w.dense(g + (mlp, "Dense_0"), f"{t}.{mlp}.0")
+            w.pbn(g + (mlp, "PointBatchNorm_0"), f"{t}.{mlp}.1")
+            w.dense(g + (mlp, "Dense_1"), f"{t}.{mlp}.3")
+    last = "Dense_4"
+    if _has(w.params, g + ("grouped_weight",)):
+        w.raw(g + ("grouped_weight",), f"{t}.weight_encoding.0.weight")
+        last = "Dense_3"
+    else:
+        w.dense(g + ("Dense_3",), f"{t}.weight_encoding.0")
+    w.pbn(g + ("PointBatchNorm_2",), f"{t}.weight_encoding.1")
+    w.dense(g + (last,), f"{t}.weight_encoding.3")
+
+
 def _gva(w: _Writer, t, path, qkv_bias=True):
     g = path + ("GroupedVectorAttention_0",)
     w.dense(g + ("Dense_0",), t + ".linear_q.0", qkv_bias)
@@ -72,6 +98,9 @@ def _gva(w: _Writer, t, path, qkv_bias=True):
     w.dense(g + ("Dense_1",), t + ".linear_k.0", qkv_bias)
     w.pbn(g + ("PointBatchNorm_1",), t + ".linear_k.1")
     w.dense(g + ("Dense_2",), t + ".linear_v", qkv_bias)
+    if not _has(w.params, g + ("pe_w1",)):
+        _legacy_gva(w, t, g)
+        return
     for mlp, pre in (("linear_p_bias", "pe"), ("weight_encoding", "we")):
         w.raw(g + (f"{pre}_w1",), f"{t}.{mlp}.0.weight", True)
         w.raw(g + (f"{pre}_b1",), f"{t}.{mlp}.0.bias")
@@ -82,10 +111,20 @@ def _gva(w: _Writer, t, path, qkv_bias=True):
         w.raw(g + (f"{pre}_b2",), f"{t}.{mlp}.3.bias")
 
 
+def _block_name(params, path, j):
+    """The flax name of block j: ``Block_j``, or ``CheckpointBlock_j`` in a
+    model built with enable_checkpoint (flax's nn.remat); None past the
+    last."""
+    for name in (f"Block_{j}", f"CheckpointBlock_{j}"):
+        if _has(params, path + (name,)):
+            return name
+    return None
+
+
 def _block_seq(w: _Writer, t, path, qkv_bias=True):
     j = 0
-    while _has(w.params, path + (f"Block_{j}",)):
-        b, tb = path + (f"Block_{j}",), f"{t}.blocks.{j}"
+    while (name := _block_name(w.params, path, j)) is not None:
+        b, tb = path + (name,), f"{t}.blocks.{j}"
         w.dense(b + ("Dense_0",), tb + ".fc1", bias=False)
         w.pbn(b + ("PointBatchNorm_0",), tb + ".norm1")
         _gva(w, tb + ".attn", b, qkv_bias)

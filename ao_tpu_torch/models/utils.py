@@ -75,6 +75,26 @@ class DropPath(nn.Module):
         return torch.where(u < keep, x / keep, 0.0)
 
 
+class Dropout(nn.Module):
+    """Elementwise dropout (the TPU package's flax ``nn.Dropout``): train
+    mode keeps each element with probability 1 - rate, scaled by
+    1 / (1 - rate); the identity in eval mode or at rate 0. The keep draws
+    come from ``generator`` as in :class:`DropPath`."""
+
+    def __init__(self, rate: float = 0.0,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.rate = rate
+        self.generator = generator
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.rate == 0.0 or not self.training:
+            return x
+        keep = 1.0 - self.rate
+        u = torch.rand(x.shape, generator=self.generator, device=x.device)
+        return torch.where(u < keep, x / keep, 0.0)
+
+
 def dense(layer: nn.Linear, x: torch.Tensor,
           dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """``layer(x)`` with input, weight and bias in ``dtype`` when given (the

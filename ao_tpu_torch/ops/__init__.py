@@ -7,7 +7,7 @@ from .knn_spatial import (
     merge_topk,
     morton_code,
 )
-from .grouping import grouping
+from .grouping import grouping, grouping_with_rel_coord
 from .grid_pool import grid_pool, unpool_map
 from .interpolation import interpolation
 from .gva import gva_eval, pack_coords

@@ -22,3 +22,16 @@ def grouping(
     if valid is not None:
         gathered = torch.where(valid[..., None], gathered, 0.0)
     return gathered
+
+
+def grouping_with_rel_coord(
+    coord: torch.Tensor,  # (B, N, 3) key coordinates
+    query_coord: torch.Tensor,  # (B, M, 3)
+    idx: torch.Tensor,  # (B, M, k)
+    valid: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Relative neighbour positions (B, M, k, 3), zeroed where invalid."""
+    rel = grouping(coord, idx) - query_coord[:, :, None, :]
+    if valid is not None:
+        rel = torch.where(valid[..., None], rel, 0.0)
+    return rel

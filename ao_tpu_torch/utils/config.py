@@ -1,4 +1,6 @@
-"""Python-file configuration system (a copy of ao_tpu/utils/config.py).
+"""Python-file configuration system (a copy of ao_tpu/utils/config.py; a
+config file's imports of the JAX package's modules named in
+``CONFIG_IMPORTS`` get the port's copies).
 
 Same user-facing features as the reference's vendored MMCV Config
 (reference: pointcept/utils/config.py — `_base_` inheritance :241-267,
@@ -18,15 +20,24 @@ from __future__ import annotations
 import argparse
 import ast
 import copy
+import importlib
 import os
 import os.path as osp
 import pprint
+import sys
 import types
 from typing import Any, Dict, List
 
 DELETE_KEY = "_delete_"
 BASE_KEY = "_base_"
 RESERVED_KEYS = {"filename", "text"}
+# modules of the JAX package that config files import (the ScanNet200
+# configs' class names), served from the port's own copies while a config
+# file runs, so that loading a config imports nothing of ao_tpu
+CONFIG_IMPORTS = {
+    "ao_tpu.datasets.preprocessing.scannet_meta": "..datasets.scannet_meta",
+}
+_ABSENT = object()
 
 
 class ConfigDict(dict):
@@ -94,7 +105,18 @@ def _exec_pyfile(filename: str) -> Dict[str, Any]:
     ast.parse(source, filename=filename)
     module = types.ModuleType("_ao_cfg")
     module.__file__ = filename
-    exec(compile(source, filename, "exec"), module.__dict__)
+    served = {name: importlib.import_module(port, __package__)
+              for name, port in CONFIG_IMPORTS.items()}
+    shadowed = {name: sys.modules.get(name, _ABSENT) for name in served}
+    sys.modules.update(served)
+    try:
+        exec(compile(source, filename, "exec"), module.__dict__)
+    finally:
+        for name, old in shadowed.items():
+            if old is _ABSENT:
+                del sys.modules[name]
+            else:
+                sys.modules[name] = old
     return {
         k: v
         for k, v in module.__dict__.items()

@@ -5,7 +5,9 @@
 Needs one CUDA card and nvcc; exits non-zero without them. Reads nothing
 under data/ or exp/: the scenes are synthetic and the weights are random.
 PT-v2m2 runs at the full width of configs/s3dis/semseg-pt-v2m2-0-base.py,
-then of configs/scannet/semseg-pt-v2m2-0-base.py.
+then of configs/scannet/semseg-pt-v2m2-0-base.py and
+configs/semantic_kitti/semseg-pt-v2m2-0-base.py, and PT-v2m1 at that of
+configs/s3dis/semseg-pt-v2m1-0-base.py.
 
 1. Prints the card (nvidia-smi name and power limit), the torch and CUDA
    versions, and builds the kernels (one nvcc process per csrc/*.cu
@@ -77,13 +79,57 @@ then of configs/scannet/semseg-pt-v2m2-0-base.py.
    step seconds and the peak memory. ``--scannet-batch B`` runs only these
    train steps at batch B (the config's own 12), ``--scannet-options``
    with other overrides (none: the config as written).
+8. Outdoor phase: configs/semantic_kitti/semseg-pt-v2m2-0-base.py as
+   written (f32, its attention unfused in both packages: only K1 and K2
+   run) at full width on synthetic LiDAR scans made here from the seed.
+   The scan model (:func:`make_scan`): a sensor 1.73 m above a ground
+   plane casts a 64-beam ring (elevations -24.8 to +2 degrees, 2048
+   azimuth steps) into a street of boxes (cars, trucks, buildings, fences,
+   bushes, tree crowns, signs) and vertical cylinders (people, trunks,
+   poles); each ray keeps its first hit within 80 m, labelled with the
+   surface's SemanticKITTI raw id and an instance id in the upper 16 bits,
+   intensity uniform in [0, 1): about 129k points a scan, as a real
+   HDL-64E sweep. Four scans are written in SemanticKITTI's layout
+   (sequence 00), a fifth as the test split's sequence 11 (no labels),
+   and a 32-beam sweep (-30.67 to +10.67 degrees, 1084 steps, about 34k
+   points) in nuScenes' layout with its info pickle. Through
+   ao_tpu_torch.tools.train: 2 steps at the config's own B=12 with
+   model.backbone.enable_checkpoint=True (without it B=12 does not fit the
+   card), then 3 steps at B=3 (the per-card batch of the reference's
+   4-card run) with checkpointing off and 3 with it on (the peak must
+   fall), each printing the step seconds, the peak memory and the stage
+   overflow counts, checking finite losses, moved parameters and
+   OneCycle's lr on every step; one step with bf16 compute
+   (SCANNET_BF16) whose K1-K6 calls are held against their plain versions
+   and timed as in 2, and 3 more counted; then whole-scan testing through
+   ao_tpu_torch.tools.test with submit=True of
+   configs/semantic_kitti/semseg-pt-v2m2-1-benchmark-submit.py on
+   sequence 11 (one .label of one uint32 per input point, every value a
+   raw id of learning_map_inv) and of
+   configs/nuscenes/semseg-pt-v2m2-1-benchmark-submit.py on the nuScenes
+   sweep (one _lidarseg.bin of one uint8 per point, in 1..16).
+   ``--outdoor-batch B`` runs only the first train steps at batch B,
+   ``--outdoor-options`` with other overrides (none: the config as
+   written).
+9. PT-v2m1 phase: configs/s3dis/semseg-pt-v2m1-0-base.py (the pe
+   multiplier, the GroupedLinear weight encoding, interp unpooling, bf16
+   compute; its attention unfused in both packages) at full width on the
+   train phase's rooms: one step at B=3 x 81920 with checkpointing on and
+   its K1 calls (each probe of the 3-probe self graph) and K2 calls (the
+   (3, 16) merges, the unpool's (2, 3)) held against their plain versions,
+   3 steps at B=3 with checkpointing on (without it B=3 does not fit the
+   card), and 3 steps at B=2 with it off and 3 with it on (the peak must
+   fall): losses finite, parameters moved, MultiStepLR's lr, launches per
+   step, step seconds and peak memory.
 
 Each main path (the slice phase, the train phase, the REAL run, the
-ScanNet test and train runs) runs with every kernel's launch count set to
-0 just before it and read just after, and fails if one of its kernels
-never launched. The last three lines are the card, the kernels' JSON
-record (one entry per kernel, then one per new instance of the ScanNet
-config) and {"ok": true, "device": {...}}.
+ScanNet test and train runs, every train and test run of phases 8 and 9)
+runs with every kernel's launch count set to 0 just before it and read
+just after, and fails if one of its kernels never launched. The last
+three lines are the card, the kernels' JSON record (one entry per kernel,
+then one per new instance of the ScanNet config, then one per kernel of
+the outdoor and of the PT-v2m1 paths at its heaviest shape there) and
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -353,7 +399,12 @@ def check_knn_window(args, out_k, out_p):
         q.reshape(B, T, tile_q, 3), wk.reshape(B, T, window, 3).transpose(-1, -2))
 
     err = (dk - dp).abs()
-    tol = 1e-5 * torch.clamp_min(dp.abs(), 1.0)
+    # a score |k|^2 - 2 q.k is a difference of terms of the order of |q|^2,
+    # which f32 rounds to 1.2e-7 of that: where a query's neighbours lie as
+    # far from it as it lies from the origin (a sparse LiDAR window at
+    # range) the score cancels to far less than its terms
+    q2 = (q * q).sum(-1, keepdim=True)
+    tol = 1e-5 * torch.clamp_min(torch.maximum(dp.abs(), q2), 1.0)
     ok = bool((err <= tol).all())
     # ids may differ only between equidistant candidates: every differing
     # id must be one of its tile's window ids whose score is the score the
@@ -869,11 +920,12 @@ def build_trainer(options, device, config=BASE_CONFIG):
     return Trainer(default_config_parser(config, opts), device=device)
 
 
-def run_train(device, options):
-    """Training through the port's entry point; returns the trainer."""
+def run_train(device, options, config=BASE_CONFIG):
+    """Training on ``config`` through the port's entry point; returns the
+    trainer."""
     from ao_tpu_torch.tools.train import main as train_main
 
-    return train_main(["--config-file", BASE_CONFIG, "--device", str(device),
+    return train_main(["--config-file", config, "--device", str(device),
                        "--options", *options])
 
 
@@ -1504,6 +1556,497 @@ def scannet_phase(device, seed, t0, card="", batch_size=4, steps=3,
     return rows, launches, inst, step_count.per_step(), per_step_inst
 
 
+# ---------------------------------------------------------------------------
+# phase 8: synthetic LiDAR scans (SemanticKITTI, nuScenes)
+# ---------------------------------------------------------------------------
+
+KITTI_CONFIG = os.path.join(ROOT, "configs", "semantic_kitti",
+                            "semseg-pt-v2m2-0-base.py")
+KITTI_SUBMIT_CONFIG = os.path.join(ROOT, "configs", "semantic_kitti",
+                                   "semseg-pt-v2m2-1-benchmark-submit.py")
+NUSCENES_SUBMIT_CONFIG = os.path.join(ROOT, "configs", "nuscenes",
+                                      "semseg-pt-v2m2-1-benchmark-submit.py")
+PTV2M1_CONFIG = os.path.join(ROOT, "configs", "s3dis", "semseg-pt-v2m1-0-base.py")
+# the sensor rings: HDL-64E (SemanticKITTI) and HDL-32E (nuScenes); sensor
+# height above the ground plane in m
+KITTI_RING = dict(beams=64, steps=2048, elevation=(-24.8, 2.0))
+NUSCENES_RING = dict(beams=32, steps=1084, elevation=(-30.67, 10.67))
+SENSOR_HEIGHT = 1.73
+# SemanticKITTI raw ids of the scan model's surfaces: road, sidewalk,
+# terrain, car, truck, person, building, fence, vegetation, trunk, pole,
+# traffic-sign; and the nuScenes lidarseg raw class of each
+_KITTI_IDS = dict(road=40, sidewalk=48, terrain=72, car=10, truck=18,
+                  person=30, building=50, fence=51, vegetation=70, trunk=71,
+                  pole=80, sign=81)
+_NUSCENES_OF_KITTI = {40: 24, 48: 26, 72: 27, 10: 17, 18: 23, 30: 2, 50: 28,
+                      51: 9, 70: 30, 71: 30, 80: 28, 81: 28}
+
+
+def _street(rng):
+    """The scan model's objects, placed from ``rng`` along a street on the
+    x axis: axis-aligned boxes (lo, hi, raw id, instance) for cars, trucks,
+    buildings, fences, bushes, tree crowns and signs, and vertical
+    cylinders (cx, cy, radius, z0, z1, raw id, instance) for people, trunks
+    and poles; z is relative to the sensor (ground at -SENSOR_HEIGHT)."""
+    g = -SENSOR_HEIGHT
+    ids = _KITTI_IDS
+    boxes, cyls = [], []
+    inst = iter(range(1, 1 << 16))
+    for _ in range(int(rng.integers(14, 20))):  # cars, trucks: road, parking
+        truck = rng.random() < 0.15
+        L, W, H = (7.5, 2.5, 3.2) if truck else (4.3, 1.8, 1.5)
+        x = rng.uniform(-45, 45)
+        y = rng.choice([-5.2, -1.8, 1.8, 5.2]) + rng.uniform(-0.3, 0.3)
+        if abs(x) < 5 and abs(y) < 3:
+            continue  # not on the sensor
+        boxes.append(((x - L / 2, y - W / 2, g), (x + L / 2, y + W / 2, g + H),
+                      ids["truck" if truck else "car"], next(inst)))
+    for side in (-1, 1):  # buildings behind a fence, bushes in front
+        x = -60.0
+        while x < 60:
+            L = rng.uniform(8, 20)
+            y0 = side * rng.uniform(12, 16)
+            D = rng.uniform(8, 14)
+            lo_y, hi_y = sorted((y0, y0 + side * D))
+            boxes.append(((x, lo_y, g), (x + L, hi_y, g + rng.uniform(6, 16)),
+                          ids["building"], 0))
+            x += L + rng.uniform(2, 6)
+        fy = side * 10.5
+        boxes.append(((-50, min(fy, fy + side * 0.1), g),
+                      (50, max(fy, fy + side * 0.1), g + 1.2), ids["fence"], 0))
+        for x in rng.uniform(-50, 50, 10):  # bushes
+            y = side * rng.uniform(8, 10)
+            boxes.append(((x - 1, y - 0.8, g), (x + 1, y + 0.8, g + 1.0),
+                          ids["vegetation"], 0))
+        for x in np.arange(-48.0, 50.0, 9.0) + rng.uniform(-1, 1):  # trees
+            y = side * 7.5
+            cyls.append((x, y, 0.18, g, g + 3.0, ids["trunk"], 0))
+            boxes.append(((x - 1.8, y - 1.8, g + 3.0), (x + 1.8, y + 1.8, g + 6.5),
+                          ids["vegetation"], 0))
+        for x in np.arange(-44.0, 50.0, 18.0) + rng.uniform(-1, 1):  # poles
+            y = side * 6.6
+            cyls.append((x, y, 0.1, g, g + 5.0, ids["pole"], 0))
+            boxes.append(((x - 0.3, y - 0.05, g + 3.0), (x + 0.3, y + 0.05, g + 3.8),
+                          ids["sign"], 0))
+    for _ in range(int(rng.integers(4, 9))):  # people on the sidewalks
+        x, y = rng.uniform(-30, 30), rng.choice([-1, 1]) * rng.uniform(5.8, 6.8)
+        cyls.append((x, y, 0.3, g, g + 1.75, ids["person"], next(inst)))
+    return boxes, cyls
+
+
+def _ground_id(x, y):
+    ids = _KITTI_IDS
+    a = np.abs(y)
+    return np.where(a < 4.0, ids["road"], np.where(a < 7.0, ids["sidewalk"],
+                                                   ids["terrain"]))
+
+
+def make_scan(seed, beams=64, steps=2048, elevation=(-24.8, 2.0),
+              max_range=80.0):
+    """One synthetic LiDAR sweep of a street (:func:`_street`), cast from a
+    sensor ``SENSOR_HEIGHT`` m above a ground plane: ``beams`` rings at
+    elevations evenly spread over ``elevation`` (degrees) and ``steps``
+    azimuth steps a turn. Each ray takes its first hit (the ground, a box
+    or a cylinder) within ``max_range``; rays that hit nothing are dropped.
+    Returns coord (n, 3) f32 with 1 cm range noise, intensity (n,) f32 in
+    [0, 1), label (n,) uint32 (the SemanticKITTI raw id of the surface hit
+    in the low 16 bits, its instance in the high 16) and ring (n,). A
+    64 x 2048 sweep keeps about 120k points, as a real HDL-64E scan."""
+    rng = np.random.default_rng(seed)
+    boxes, cyls = _street(rng)
+    az = (np.arange(steps) + rng.uniform()) * (2 * np.pi / steps)
+    el = np.deg2rad(np.linspace(elevation[0], elevation[1], beams))
+    ring = np.repeat(np.arange(beams), steps)
+    az = np.tile(az, beams) + rng.normal(0, 2e-4, beams * steps)
+    el = el[ring]
+    d = np.stack([np.cos(el) * np.cos(az), np.cos(el) * np.sin(az),
+                  np.sin(el)], -1).astype(np.float32)
+    t = np.full(len(d), np.inf, np.float32)
+    label = np.zeros(len(d), np.uint32)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        tg = np.where(d[:, 2] < 0, -SENSOR_HEIGHT / d[:, 2], np.inf)
+    hit = tg < t
+    t[hit] = tg[hit]
+    label[hit] = _ground_id(*(tg[hit, None] * d[hit, :2]).T)
+    inv = 1.0 / np.where(d == 0, 1e-12, d)
+    for lo, hi, raw, inst in boxes:  # slab test
+        lo, hi = np.asarray(lo, np.float32), np.asarray(hi, np.float32)
+        t0, t1 = lo * inv, hi * inv
+        tn = np.minimum(t0, t1).max(1)
+        tf = np.maximum(t0, t1).min(1)
+        hit = (tn <= tf) & (tn > 0) & (tn < t)
+        t[hit] = tn[hit]
+        label[hit] = (inst << 16) | raw
+    a = (d[:, :2] ** 2).sum(1)
+    for cx, cy, r, z0, z1, raw, inst in cyls:
+        b = d[:, 0] * cx + d[:, 1] * cy
+        disc = b * b - a * (cx * cx + cy * cy - r * r)
+        with np.errstate(invalid="ignore"):
+            tc = (b - np.sqrt(disc)) / a
+        z = tc * d[:, 2]
+        hit = (disc > 0) & (tc > 0) & (tc < t) & (z >= z0) & (z <= z1)
+        t[hit] = tc[hit]
+        label[hit] = (inst << 16) | raw
+    keep = t < max_range
+    t = t[keep] + rng.normal(0, 0.01, int(keep.sum())).astype(np.float32)
+    coord = (t[:, None] * d[keep]).astype(np.float32)
+    return dict(coord=coord, intensity=rng.random(len(t), dtype=np.float32),
+                label=label[keep], ring=ring[keep])
+
+def write_kitti(root, sequences):
+    """Write scans (from :func:`make_scan`) in SemanticKITTI's layout under
+    ``root``: ``dataset/sequences/<seq>/velodyne/<frame>.bin`` (x, y, z,
+    intensity as float32) and, for every sequence outside the test split
+    (11-21), ``labels/<frame>.label`` (uint32). ``sequences`` maps a
+    sequence number to its scans."""
+    for seq, scans in sequences.items():
+        base = os.path.join(root, "dataset", "sequences", f"{seq:02d}")
+        os.makedirs(os.path.join(base, "velodyne"), exist_ok=True)
+        if seq < 11:
+            os.makedirs(os.path.join(base, "labels"), exist_ok=True)
+        for i, s in enumerate(scans):
+            np.concatenate([s["coord"], s["intensity"][:, None]], 1).astype(
+                np.float32).tofile(os.path.join(base, "velodyne", f"{i:06d}.bin"))
+            if seq < 11:
+                s["label"].astype(np.uint32).tofile(
+                    os.path.join(base, "labels", f"{i:06d}.label"))
+
+
+def write_nuscenes(root, splits, sweeps=10):
+    """Write sweeps (from :func:`make_scan` with :data:`NUSCENES_RING`) in
+    nuScenes' layout under ``root``: ``raw/samples/LIDAR_TOP/<token>.bin``
+    ((n, 5) float32: x, y, z, intensity 0..255, ring), outside the test
+    split ``raw/lidarseg/<token>_lidarseg.bin`` (uint8 raw lidarseg
+    classes), and ``info/nuscenes_infos_{sweeps}sweeps_<split>.pkl``.
+    ``splits`` maps a split to its sweeps; tokens are ``<split><i>``."""
+    import pickle
+
+    lut = np.zeros(max(_KITTI_IDS.values()) + 1, np.uint8)
+    for k, v in _NUSCENES_OF_KITTI.items():
+        lut[k] = v
+    os.makedirs(os.path.join(root, "raw", "samples", "LIDAR_TOP"), exist_ok=True)
+    os.makedirs(os.path.join(root, "raw", "lidarseg"), exist_ok=True)
+    os.makedirs(os.path.join(root, "info"), exist_ok=True)
+    for split, scans in splits.items():
+        infos = []
+        for i, s in enumerate(scans):
+            token = f"{split}{i:04d}"
+            info = dict(lidar_path=f"samples/LIDAR_TOP/{token}.bin",
+                        lidar_token=token)
+            np.concatenate([s["coord"], 255 * s["intensity"][:, None],
+                            s["ring"][:, None]], 1).astype(np.float32).tofile(
+                os.path.join(root, "raw", info["lidar_path"]))
+            if split != "test":
+                info["gt_segment_path"] = f"lidarseg/{token}_lidarseg.bin"
+                lut[s["label"] & 0xFFFF].tofile(
+                    os.path.join(root, "raw", info["gt_segment_path"]))
+            infos.append(info)
+        with open(os.path.join(root, "info", f"nuscenes_infos_{sweeps}sweeps_"
+                               f"{split}.pkl"), "wb") as f:
+            pickle.dump(infos, f)
+
+
+def outdoor_setup(train_scans, test_scan=None, sweep=None, workdir=None):
+    """Write ``train_scans`` as SemanticKITTI sequence 00 (train split),
+    ``test_scan`` as sequence 11 (test split, no labels) and ``sweep`` as
+    the nuScenes test split's one sweep, under ``workdir`` (a new temporary
+    directory by default); returns it."""
+    workdir = workdir or tempfile.mkdtemp(prefix="ao_chip_outdoor_")
+    write_kitti(os.path.join(workdir, "semantic_kitti"),
+                {0: train_scans, **({11: [test_scan]} if test_scan else {})})
+    if sweep is not None:
+        write_nuscenes(os.path.join(workdir, "nuscenes"), {"test": [sweep]})
+    return workdir
+
+
+def kitti_options(workdir, n_scans, batch_size=3, max_steps=3, workers=6,
+                  seed=0):
+    """The train entry point's KEY=VALUE overrides of the SemanticKITTI
+    config for the scans of :func:`outdoor_setup`: enough loops of the
+    ``n_scans`` scans for ``max_steps`` in one epoch (OneCycle spans that
+    epoch), evaluation and TensorBoard off."""
+    # the trainer loops the train set epoch // eval_epoch times an epoch
+    loop = -(-batch_size * max_steps // n_scans)
+    return [f"save_path={os.path.join(workdir, 'exp')}",
+            f"data.train.data_root={os.path.join(workdir, 'semantic_kitti')}",
+            f"batch_size={batch_size}", f"max_steps={max_steps}",
+            f"num_worker={workers}", f"seed={seed}", f"epoch={loop}",
+            "eval_epoch=1", "evaluate=False", "enable_tensorboard=False"]
+
+
+def check_lr(trainer, lr_of_step, what):
+    """Every step's lr equals ``lr_of_step(step)`` to 1e-12 relative."""
+    for i, r in enumerate(trainer.history):
+        lr = lr_of_step(i)
+        if abs(r["lr"] - lr) > 1e-12 * lr:
+            raise RuntimeError(f"{what} step {i}: lr {r['lr']}, expected {lr}")
+
+
+def onecycle_of(trainer):
+    from ao_tpu_torch.utils.scheduler import onecycle_lr
+
+    s = trainer.cfg.scheduler
+    return lambda i: onecycle_lr(i, trainer.total_steps, s.max_lr, s.pct_start,
+                                 s.div_factor, s.final_div_factor)
+
+
+def multistep_of(trainer):
+    """MultiStepLR per step: gamma for every milestone int(r * total) passed."""
+    s, base = trainer.cfg.scheduler, trainer.cfg.optimizer.lr
+    bounds = [int(r * trainer.total_steps) for r in s.milestones]
+    return lambda i: base * s.gamma ** sum(i >= b for b in bounds)
+
+
+def train_run(label, config, device, options, steps, path_kernels, lr_of,
+              card):
+    """One train run through the entry point, driven with the launch counts
+    set to 0 just before and read just after: losses and gradient norms
+    finite, the parameters moved, each step's lr the schedule's. Prints the
+    step seconds, the peak memory, the overflow counts and the launches per
+    step. Returns (launches, launches per step, record)."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with StepLaunches() as step_count:
+        trainer, launches = _drive(path_kernels, lambda: run_train(
+            device, options, config))
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    changed, n_params = check_train(trainer, steps)
+    check_lr(trainer, lr_of(trainer), label)
+    hist = trainer.history
+    step_s = [r["step_seconds"] for r in hist]
+    med = float(np.median(step_s[1:])) if len(step_s) > 1 else step_s[0]
+    record = dict(batch=trainer.cfg.batch_size, points=[r["points"] for r in hist],
+                  step_seconds=step_s, median_step_seconds=med,
+                  peak_gib=peak_gb, pool_overflow=[r["pool_overflow"] for r in hist],
+                  launches_per_step=step_count.per_step())
+    print(f"{label}: points/step {record['points']}; losses "
+          f"{[round(r['loss'], 5) for r in hist]}; grad_norms "
+          f"{[round(r['grad_norm'], 4) for r in hist]}; lr "
+          f"{[r['lr'] for r in hist]}; pool_overflow "
+          f"{record['pool_overflow']}; {changed}/{n_params} parameter tensors "
+          f"changed", flush=True)
+    print(f"{label}: step seconds {[round(x, 4) for x in step_s]} (median of "
+          f"steps 2-{steps}: {med:.4f} s), data wait "
+          f"{[round(r['data_seconds'], 4) for r in hist]}; peak memory "
+          f"{peak_gb:.2f} GiB; launches per step {record['launches_per_step']};"
+          f" card {card}", flush=True)
+    del trainer
+    torch.cuda.empty_cache()
+    return launches, record
+
+
+def capture_step(config, options, device, names, t0, label):
+    """One train step of ``config``'s trainer on its first batch with the
+    wrappers of ``names`` (kernel names of :data:`KERNEL_INFO`) captured,
+    then every captured (kernel, shape) held against its plain version and
+    timed (:func:`hold_captured`)."""
+    from ao_tpu_torch.ops import gva as gva_mod
+    from ao_tpu_torch.ops import knn_spatial as ks
+
+    trainer = build_trainer(options, device, config)
+    it = iter(trainer.train_loader)
+    batch = next(it)
+    del it
+    cap = Capture()
+    for name in names:
+        if name == "merge_topk":
+            cap.wrap(ks, "merge_topk_probes", name)
+        elif name == "knn_window":
+            cap.wrap(ks, name, name)
+        else:
+            cap.wrap(gva_mod, name, name)
+    try:
+        m = trainer.train_step(batch)
+        torch.cuda.synchronize()
+    finally:
+        cap.restore()
+    if not (torch.isfinite(m["loss"]) and torch.isfinite(m["grad_norm"])):
+        raise RuntimeError(f"non-finite loss or gradient on the {label}")
+    log(t0, f"captured the {label}'s kernel inputs, (B, N) "
+            f"{tuple(batch['mask'].shape)}, stage capacities "
+            f"{trainer.model.backbone.stage_capacities(batch['mask'].shape[1])}"
+            f", loss {float(m['loss']):.4f}")
+    del trainer, batch
+    torch.cuda.empty_cache()
+    rows = hold_captured(cap, label)
+    missing = set(names) - {r["name"] for r in rows}
+    if missing:
+        raise RuntimeError(f"kernels never called on the {label}: {sorted(missing)}")
+    return rows
+
+
+def run_submit_test(config, device, seed, workdir, options):
+    """Whole-scan testing of ``config``'s test split through the port's
+    entry point with ``submit=True`` and the KEY=VALUE ``options``, on the
+    weights of the model they configure drawn from ``seed``; returns the
+    result dict."""
+    from ao_tpu_torch.models import build_model
+    from ao_tpu_torch.tools.test import main as test_main
+    from ao_tpu_torch.utils import Config, DictAction
+
+    cfg = Config.fromfile(config)
+    cfg.merge_from_dict({k: DictAction._parse_value(v) for k, v in
+                         (o.partition("=")[::2] for o in options)})
+    torch.manual_seed(seed)
+    model = build_model(dict(cfg.model))
+    weight = os.path.join(workdir, "model.pt")
+    torch.save(model.state_dict(), weight)
+    return test_main(["--config-file", config, "--device", str(device),
+                      "--options", f"weight={weight}", "submit=True", *options])
+
+
+def check_submission(path, n, dtype, allowed):
+    """The submission file at ``path`` holds ``n`` values of ``dtype``, each
+    in ``allowed``; returns the values."""
+    if not os.path.isfile(path):
+        raise RuntimeError(f"no submission file {path}")
+    pred = np.fromfile(path, dtype=dtype)
+    if len(pred) != n:
+        raise RuntimeError(f"{path}: {len(pred)} values for {n} points")
+    bad = ~np.isin(pred, np.asarray(sorted(allowed)))
+    if bad.any():
+        raise RuntimeError(f"{path}: values {np.unique(pred[bad])[:8]} outside "
+                           f"the benchmark's classes")
+    return pred
+
+
+def outdoor_phase(device, seed, t0, card="", batch_size=12, steps=2,
+                  small_batch_size=3, small_steps=3, full=True,
+                  extra=("model.backbone.enable_checkpoint=True",)):
+    """Phase 8: the SemanticKITTI config as written (f32) at full width on
+    synthetic 64-beam scans: ``steps`` train steps at ``batch_size`` with
+    the KEY=VALUE overrides ``extra`` (by default checkpointing on), then
+    (``full``) ``small_steps`` at ``small_batch_size`` with checkpointing
+    off and on; one step with bf16 compute whose K1-K6 calls are held
+    against their plain versions, and ``small_steps`` more of it counted;
+    whole-scan testing of the benchmark-submit configs with submit=True on
+    a SemanticKITTI test scan and a nuScenes test sweep. Returns (kernel
+    rows, launches by path, train records)."""
+    from ao_tpu_torch.utils import Config
+
+    t_phase = time.perf_counter()
+    scans = [make_scan(seed * 100 + s, **KITTI_RING) for s in range(4)]
+    test_scan = make_scan(seed * 100 + 4, **KITTI_RING)
+    sweep = make_scan(seed * 100 + 5, **NUSCENES_RING)
+    workdir = outdoor_setup(scans, test_scan, sweep)
+    options = kitti_options(workdir, len(scans), batch_size, steps, seed=seed)
+    log(t0, f"LiDAR scans: {[len(s['coord']) for s in scans]} train, "
+            f"{len(test_scan['coord'])} test points; nuScenes sweep "
+            f"{len(sweep['coord'])} points")
+    f32_kernels = ("knn_window", "merge_topk")
+    launches, records = {}, {}
+    launches["kitti_train_b"], records["kitti_train_b"] = train_run(
+        f"kitti train B={batch_size} ({' '.join(extra) or 'as written'})",
+        KITTI_CONFIG, device, options + list(extra), steps, f32_kernels,
+        onecycle_of, card)
+    log(t0, "SemanticKITTI train steps done")
+    if not full:
+        return [], launches, records
+
+    small = kitti_options(workdir, len(scans), small_batch_size, small_steps,
+                          seed=seed)
+    for key, ckpt in (("kitti_train", False), ("kitti_train_ckpt", True)):
+        launches[key], records[key] = train_run(
+            f"kitti train B={small_batch_size} enable_checkpoint={ckpt}",
+            KITTI_CONFIG, device, small + [
+                f"model.backbone.enable_checkpoint={ckpt}",
+                f"save_path={os.path.join(workdir, key)}"], small_steps,
+            f32_kernels, onecycle_of, card)
+    if not records["kitti_train_ckpt"]["peak_gib"] < records["kitti_train"]["peak_gib"]:
+        raise RuntimeError("enable_checkpoint did not lower the peak memory")
+    log(t0, "SemanticKITTI checkpointing off / on done")
+
+    bf16 = small + list(SCANNET_BF16)
+    rows = capture_step(KITTI_CONFIG, bf16 + [
+        f"save_path={os.path.join(workdir, 'exp_kernels')}"], device,
+        TRAIN_KERNELS, t0, "kitti bf16 train step")
+    launches["kitti_train_bf16"], records["kitti_train_bf16"] = train_run(
+        f"kitti train B={small_batch_size} bf16", KITTI_CONFIG, device,
+        bf16 + [f"save_path={os.path.join(workdir, 'exp_bf16')}"], small_steps,
+        TRAIN_KERNELS, onecycle_of, card)
+    log(t0, "SemanticKITTI bf16 step done")
+
+    cfg = Config.fromfile(KITTI_SUBMIT_CONFIG)
+    kitti_root = os.path.join(workdir, "semantic_kitti")
+    t = time.perf_counter()
+    result, launches["kitti_test"] = _drive(f32_kernels, lambda: run_submit_test(
+        KITTI_SUBMIT_CONFIG, device, seed, workdir, [
+            f"save_path={os.path.join(workdir, 'kitti_test')}",
+            f"data.test.data_root={kitti_root}"]))
+    seconds = time.perf_counter() - t
+    label = check_submission(
+        os.path.join(workdir, "kitti_test", "result", "submit", "sequences",
+                     "11", "predictions", "000000.label"),
+        len(test_scan["coord"]), np.uint32, set(cfg.learning_map_inv.values()))
+    scene = result["scenes"][0]
+    print(f"kitti test (submit): {scene['fragments']} fragments in batches "
+          f"(B, N) {scene['batches']}; scan {scene['seconds']:.2f} s ({seconds:.2f}"
+          f" s with loading); .label of {len(label)} uint32, raw ids "
+          f"{np.unique(label).tolist()}; launches {launches['kitti_test']}",
+          flush=True)
+    t = time.perf_counter()
+    result, launches["nuscenes_test"] = _drive(
+        ("knn_window",), lambda: run_submit_test(
+            NUSCENES_SUBMIT_CONFIG, device, seed, workdir, [
+                f"save_path={os.path.join(workdir, 'nuscenes_test')}",
+                f"data.test.data_root={os.path.join(workdir, 'nuscenes')}"]))
+    seconds = time.perf_counter() - t
+    pred = check_submission(
+        os.path.join(workdir, "nuscenes_test", "result", "submit", "lidarseg",
+                     "test", "test0000_lidarseg.bin"),
+        len(sweep["coord"]), np.uint8, set(range(1, 17)))
+    scene = result["scenes"][0]
+    print(f"nuscenes test (submit): {scene['fragments']} fragments in batches "
+          f"(B, N) {scene['batches']}; sweep {scene['seconds']:.2f} s "
+          f"({seconds:.2f} s with loading); _lidarseg.bin of {len(pred)} uint8 "
+          f"in {pred.min()}..{pred.max()}; launches {launches['nuscenes_test']}",
+          flush=True)
+    torch.cuda.empty_cache()
+    log(t0, f"outdoor phase done in {time.perf_counter() - t_phase:.1f} s")
+    return rows, launches, records
+
+
+def ptv2m1_phase(device, seed, t0, rooms, card="", steps=3, batch_size=3,
+                 off_batch_size=2):
+    """Phase 9: configs/s3dis/semseg-pt-v2m1-0-base.py (PT-v2m1: the pe
+    multiplier, GroupedLinear weight encoding, interp unpooling; bf16
+    compute by its base config; its attention unfused in both packages)
+    at full width on the train phase's rooms, with checkpointing on at
+    ``batch_size`` (B=3 x 81920, the base config's per-card batch): one
+    step with its K1 (each probe of the multi-probe graph) and K2 ((3, 16)
+    merges, the unpool's (2, 3)) calls held against their plain versions,
+    then ``steps`` steps; and ``steps`` steps at ``off_batch_size`` with
+    checkpointing off and on (without it B=3 does not fit the card).
+    Returns (kernel rows, launches by path, train records)."""
+    t_phase = time.perf_counter()
+    graph = ("knn_window", "merge_topk")
+    ckpt = ["model.backbone.enable_checkpoint=True"]
+    workdir, options = train_setup(rooms, batch_size=batch_size,
+                                   max_steps=steps, seed=seed)
+    rows = capture_step(PTV2M1_CONFIG, options + ckpt + [
+        f"save_path={os.path.join(workdir, 'exp_kernels')}"], device, graph,
+        t0, "PT-v2m1 train step")
+    launches, records = {}, {}
+    launches["ptv2m1_train_ckpt"], records["ptv2m1_train_ckpt"] = train_run(
+        f"PT-v2m1 train B={batch_size} enable_checkpoint=True", PTV2M1_CONFIG,
+        device, options + ckpt, steps, graph, multistep_of, card)
+    _, small = train_setup(rooms, workdir=workdir, batch_size=off_batch_size,
+                           max_steps=steps, seed=seed)
+    for on in (False, True):
+        key = f"ptv2m1_train_b{off_batch_size}" + ("_ckpt" if on else "")
+        launches[key], records[key] = train_run(
+            f"PT-v2m1 train B={off_batch_size} enable_checkpoint={on}",
+            PTV2M1_CONFIG, device, small + [
+                f"model.backbone.enable_checkpoint={on}",
+                f"save_path={os.path.join(workdir, key)}"], steps, graph,
+            multistep_of, card)
+    off, on = (records[f"ptv2m1_train_b{off_batch_size}{x}"] for x in ("", "_ckpt"))
+    if not on["peak_gib"] < off["peak_gib"]:
+        raise RuntimeError("enable_checkpoint did not lower PT-v2m1's peak memory")
+    log(t0, f"PT-v2m1 phase done in {time.perf_counter() - t_phase:.1f} s")
+    return rows, launches, records
+
+
 def _wrappers():
     """The kernels' wrappers (the wrapper itself where a counting shim of
     :class:`InstanceLaunches` stands in its place)."""
@@ -1721,6 +2264,8 @@ def run(device, seed, t0, room_size=(4.8, 4.0, 2.6), train_steps=5, card="",
 
     (sc_rows, sc_launches, sc_inst, sc_per_step,
      sc_inst_per_step) = scannet_phase(device, seed, t0, card)
+    out_rows, out_launches, _ = outdoor_phase(device, seed, t0, card)
+    m1_rows, m1_launches, _ = ptv2m1_phase(device, seed, t0, rooms, card)
 
     # one entry per kernel: its heaviest captured shape of the S3DIS paths
     kernels = []
@@ -1730,7 +2275,9 @@ def run(device, seed, t0, room_size=(4.8, 4.0, 2.6), train_steps=5, card="",
         by_path = {"test": slice_launches[name], "train": train_launches[name],
                    "real": real_launches[name],
                    "scannet_test": sc_launches["scannet_test"][name],
-                   "scannet_train": sc_launches["scannet_train"][name]}
+                   "scannet_train": sc_launches["scannet_train"][name],
+                   **{p: n[name] for p, n in out_launches.items()},
+                   **{p: n[name] for p, n in m1_launches.items()}}
         kernels.append(dict(
             name=name, **info, launches=sum(by_path.values()),
             launches_by_path=by_path,
@@ -1757,6 +2304,24 @@ def run(device, seed, t0, room_size=(4.8, 4.0, 2.6), train_steps=5, card="",
             bound_ms=row["bound_ms"], bound_by=row["bound_by"],
             library_ms=row["library_ms"],
             shape=f"{row['phase']}: {row['shape']}"))
+    # and one per kernel of the outdoor and PT-v2m1 paths, at its heaviest
+    # shape there, with the launches of those paths
+    for tag, phase_rows, paths in (("outdoor", out_rows, out_launches),
+                                   ("ptv2m1", m1_rows, m1_launches)):
+        for name in sorted({r["name"] for r in phase_rows}):
+            row = max((r for r in phase_rows if r["name"] == name),
+                      key=lambda r: r["bound_ms"])
+            by_path = {p: n[name] for p, n in paths.items()}
+            if sum(by_path.values()) <= 0:
+                raise RuntimeError(f"{name} never launched on the {tag} paths")
+            kernels.append(dict(
+                name=f"{name}[{tag}]", **KERNEL_INFO[name],
+                launches=sum(by_path.values()), launches_by_path=by_path,
+                max_abs_err=row["max_abs_err"], ms=row["ms"],
+                device_ms=row["device_ms"], plain_ms=row["plain_ms"],
+                bound_ms=row["bound_ms"], bound_by=row["bound_by"],
+                library_ms=row["library_ms"],
+                shape=f"{row['phase']}: {row['shape']}"))
     return kernels
 
 
@@ -1773,6 +2338,16 @@ def main():
         metavar="KEY=VALUE",
         help="config overrides of the ScanNet run (default: bf16 compute; "
              "none: the config as written, f32)")
+    parser.add_argument(
+        "--outdoor-batch", type=int, default=None, metavar="B",
+        help="run only the SemanticKITTI config's train steps at batch B (the "
+             "config's own batch_size is 12), printing step seconds, peak "
+             "memory and overflow counts, and no kernel record")
+    parser.add_argument(
+        "--outdoor-options", nargs="*",
+        default=["model.backbone.enable_checkpoint=True"], metavar="KEY=VALUE",
+        help="config overrides of the SemanticKITTI run (default: "
+             "checkpointing on; none: the config as written)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA card (torch.cuda.is_available() is "
@@ -1799,6 +2374,11 @@ def main():
         scannet_phase(torch.device("cuda"), args.seed, t0, card,
                       batch_size=args.scannet_batch, test=False,
                       extra=args.scannet_options)
+    if args.outdoor_batch is not None:
+        outdoor_phase(torch.device("cuda"), args.seed, t0, card,
+                      batch_size=args.outdoor_batch, full=False,
+                      extra=args.outdoor_options)
+    if args.scannet_batch is not None or args.outdoor_batch is not None:
         faulthandler.cancel_dump_traceback_later()
         print(f"card: {card}", flush=True)
         return 0
