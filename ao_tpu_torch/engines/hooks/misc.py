@@ -2,8 +2,9 @@
 pointcept/engines/hooks/misc.py).
 
 IterationTimer, InformationWriter, CheckpointSaver and CheckpointLoader:
-the hooks of configs/_base_/default_runtime.py. Not ported yet:
-PreciseEvaluator, the profiler hooks and DataCacheOperator.
+the hooks of configs/_base_/default_runtime.py; PreciseEvaluator and
+RuntimeProfiler, which some configs add. Not ported yet: RuntimeProfilerV2
+and DataCacheOperator.
 """
 
 from __future__ import annotations
@@ -11,6 +12,8 @@ from __future__ import annotations
 import os
 import shutil
 import time
+
+import torch
 
 from ...utils.checkpoint import filter_state_dict
 from .builder import HOOKS
@@ -161,3 +164,68 @@ class CheckpointLoader(HookBase):
         trainer.logger.info(
             f"Loaded model weights (no optimizer state); missing keys "
             f"{missing}, unexpected keys {unexpected}")
+
+
+@HOOKS.register_module()
+class PreciseEvaluator(HookBase):
+    """After training, the config's tester (``cfg.test``: whole-scene TTA
+    testing of ``data.test``) on the trainer's model, with the weights of
+    ``model/model_best.pt`` unless ``test_last`` (reference
+    hooks/misc.py:255-296)."""
+
+    def __init__(self, test_last=False):
+        self.test_last = test_last
+
+    def after_train(self):
+        from ..test import TEST, load_weights
+
+        trainer = self.trainer
+        trainer.logger.info(">>>>>>>>>>>>>>>> Start Precise Evaluation >>>>>>>>>>>>>>>>")
+        best = os.path.join(trainer.save_path, "model", "model_best.pt")
+        if not self.test_last and os.path.isfile(best):
+            trainer.logger.info(f"Loading {best}")
+            trainer.model.load_state_dict(load_weights(best))
+        tester = TEST.build(dict(trainer.cfg.test, cfg=trainer.cfg,
+                                 device=trainer.device, model=trainer.model))
+        trainer.comm_info["precise_result"] = tester()
+
+
+@HOOKS.register_module()
+class RuntimeProfiler(HookBase):
+    """torch.profiler over ``profile_steps`` train steps from iteration
+    ``warm_up`` of an epoch (host, and the card's kernels on a card); the
+    trace is written to ``<save_path>/profile/trace.json`` (reference
+    torch.profiler hooks: misc.py:333-482)."""
+
+    def __init__(self, warm_up=2, profile_steps=3):
+        self.warm_up = warm_up
+        self.profile_steps = profile_steps
+        self._prof = None
+
+    def before_step(self):
+        trainer = self.trainer
+        if self._prof is None and trainer.comm_info["iter"] == self.warm_up:
+            acts = [torch.profiler.ProfilerActivity.CPU]
+            if trainer.device.type == "cuda":
+                acts.append(torch.profiler.ProfilerActivity.CUDA)
+            self._prof = torch.profiler.profile(activities=acts)
+            self._prof.__enter__()
+            trainer.logger.info(f"Profiling {self.profile_steps} steps")
+
+    def after_step(self):
+        if (self._prof is not None and self.trainer.comm_info["iter"]
+                >= self.warm_up + self.profile_steps - 1):
+            self._stop()
+
+    def after_train(self):
+        if self._prof is not None:  # training ended inside the window
+            self._stop()
+
+    def _stop(self):
+        prof, self._prof = self._prof, None
+        prof.__exit__(None, None, None)
+        trace_dir = os.path.join(self.trainer.save_path, "profile")
+        os.makedirs(trace_dir, exist_ok=True)
+        path = os.path.join(trace_dir, "trace.json")
+        prof.export_chrome_trace(path)
+        self.trainer.logger.info(f"Profile written to {path}")

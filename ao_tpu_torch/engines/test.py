@@ -3,7 +3,8 @@ ao_tpu/engines/test.py).
 
 Each scene is expanded by the dataset into TTA views and, per view, into
 complementary GridSample fragments. Fragments are batched ``fb`` at a
-time into one padded forward on the tester's device; softmax
+time into one padded forward on the tester's device (with their
+``discrete_coord`` when the fragments carry it); softmax
 probabilities are added onto a full-resolution (n, K) accumulator on the
 host and the argmax is scored against the full-resolution labels.
 Per-scene votes are cached as ``<name>_pred.npy`` for resume. With
@@ -66,8 +67,8 @@ class TesterBase:
         self.save_path = cfg.save_path
 
     @torch.inference_mode()
-    def forward(self, coord, feat, mask):
-        return self.model(coord, feat, mask)
+    def forward(self, coord, feat, mask, discrete_coord=None):
+        return self.model(coord, feat, mask, discrete_coord=discrete_coord)
 
     @staticmethod
     def batches(frags, pad_multiple, fb=8):
@@ -87,9 +88,10 @@ class TesterBase:
         pred = np.zeros((n, num_classes), np.float32)
         shapes = []
         for group, batch in self.batches(frags, pad_multiple, fb):
-            logits = self.forward(
-                *(batch[k].to(self.device) for k in ("coord", "feat", "mask"))
-            )
+            logits = self.forward(**{
+                k: batch[k].to(self.device)
+                for k in ("coord", "feat", "mask", "discrete_coord")
+                if k in batch})
             probs = torch.softmax(logits.float(), dim=-1).cpu().numpy()
             shapes.append(tuple(batch["mask"].shape))
             for b, f in enumerate(group):

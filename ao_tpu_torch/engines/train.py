@@ -9,8 +9,10 @@ after_epoch, then after_train; hooks come from ``cfg.hooks``
 InformationWriter, SemSegEvaluator, CheckpointSaver).
 
 One train step: forward in train mode (batch-statistic BatchNorms,
-stochastic depth), the configured criteria over the valid points, backward,
-``optimizer.step()`` and a per-step ``scheduler.step()``. It reports the
+stochastic depth; the batch's ``discrete_coord``, when it has one, goes to
+the model with coord, feat and mask), the configured criteria over the
+valid points, backward, ``optimizer.step()`` and a per-step
+``scheduler.step()``. It reports the
 metrics ``loss``, ``pool_overflow`` (clusters beyond the grid pools' static
 capacities; 0 when they suffice) and ``grad_norm`` (the L2 norm of all
 gradients; finite iff every gradient is), read back to the host once a
@@ -200,8 +202,12 @@ class Trainer(TrainerBase):
             collate_fn=self._collate(), pin_memory=self.device.type == "cuda")
 
     def _to_device(self, batch):
-        return (batch[k].to(self.device, non_blocking=True)
-                for k in ("coord", "feat", "mask", "segment"))
+        """(the model's inputs: coord, feat, mask and, when the batch carries
+        it, discrete_coord; segment), on the device."""
+        inputs = {k: batch[k].to(self.device, non_blocking=True)
+                  for k in ("coord", "feat", "mask", "discrete_coord")
+                  if k in batch}
+        return inputs, batch["segment"].to(self.device, non_blocking=True)
 
     def train_step(self, batch) -> Dict[str, torch.Tensor]:
         """One optimizer step on a collated batch; returns the metrics as
@@ -212,9 +218,9 @@ class Trainer(TrainerBase):
         """One optimizer step; returns (the metrics as device tensors, the
         step's logits (B, N, C), detached)."""
         self.model.train()
-        coord, feat, mask, segment = self._to_device(batch)
-        logits = self.model(coord, feat, mask)
-        loss = self.criteria(logits, segment.long(), mask)
+        inputs, segment = self._to_device(batch)
+        logits = self.model(**inputs)
+        loss = self.criteria(logits, segment.long(), inputs["mask"])
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()
         grad_norm = torch.nn.utils.get_total_norm(
@@ -273,8 +279,9 @@ class Trainer(TrainerBase):
         its grid-sampled points are carried to its full-resolution points
         by their exact nearest sampled point and scored there."""
         self.model.eval()
-        coord, feat, mask, segment = self._to_device(batch)
-        logits = self.model(coord, feat, mask)
+        inputs, segment = self._to_device(batch)
+        coord, mask = inputs["coord"], inputs["mask"]
+        logits = self.model(**inputs)
         loss = float(self.criteria(logits, segment.long(), mask))
         pred = logits.argmax(-1)
         K = self.cfg.data.num_classes

@@ -13,13 +13,14 @@ class PointBatchNorm(nn.Module):
     the batch statistics of the valid rows (the padded batch's translation
     of the reference's BatchNorm1d over ragged points) and updates the
     running mean and the running variance, the latter unbiased, with
-    momentum 0.1; eval mode normalises with the running statistics. Padded
+    ``momentum`` (torch's: the batch statistic's weight; 0.1 by default);
+    eval mode normalises with the running statistics. Padded
     rows come out zero. ``norm`` is a BatchNorm1d so that parameter names
     follow the reference (``<name>.norm.weight`` ...)."""
 
-    def __init__(self, features: int, eps: float = 1e-5):
+    def __init__(self, features: int, eps: float = 1e-5, momentum: float = 0.1):
         super().__init__()
-        self.norm = nn.BatchNorm1d(features, eps=eps)
+        self.norm = nn.BatchNorm1d(features, eps=eps, momentum=momentum)
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None):
         n = self.norm
@@ -35,7 +36,7 @@ class PointBatchNorm(nn.Module):
                 cnt = torch.clamp_min(m.sum(), 1.0)
                 mean = (xf * m).sum(dims) / cnt
                 var = (((xf - mean) ** 2) * m).sum(dims) / cnt
-            update_running_stats(n, mean, var, cnt)
+            update_running_stats(n, mean, var, cnt, n.momentum)
         else:
             mean, var = n.running_mean, n.running_var
         y = (xf - mean) * torch.rsqrt(var + n.eps)

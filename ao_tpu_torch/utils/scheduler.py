@@ -57,7 +57,13 @@ def MultiStepWithWarmupLR(optimizer, total_steps, milestones, gamma=0.1,
 
 
 @SCHEDULERS.register_module()
-def PolyLR(optimizer, total_steps, power=0.9):
+def PolyLR(optimizer, total_steps, power=0.9, max_lr=None, pct_start=None,
+           anneal_strategy=None, div_factor=None, final_div_factor=None):
+    """lr * (1 - k / (total_steps + 1)) ** power. The OneCycle keys are
+    taken and ignored: configs/s3dis/semseg-minkunet34c-0-base.py sets
+    ``dict(type="PolyLR", power=0.9)`` over its base's OneCycleLR without
+    ``_delete_``, so its merged scheduler carries them (the JAX package's
+    PolyLR raises on them)."""
     return torch.optim.lr_scheduler.LambdaLR(
         optimizer, lambda k: (1.0 - k / (total_steps + 1)) ** power)
 

@@ -6,8 +6,10 @@ Needs one CUDA card and nvcc; exits non-zero without them. Reads nothing
 under data/ or exp/: the scenes are synthetic and the weights are random.
 PT-v2m2 runs at the full width of configs/s3dis/semseg-pt-v2m2-0-base.py,
 then of configs/scannet/semseg-pt-v2m2-0-base.py and
-configs/semantic_kitti/semseg-pt-v2m2-0-base.py, and PT-v2m1 at that of
-configs/s3dis/semseg-pt-v2m1-0-base.py.
+configs/semantic_kitti/semseg-pt-v2m2-0-base.py, PT-v2m1 at that of
+configs/s3dis/semseg-pt-v2m1-0-base.py, and the sparse-convolution U-Nets
+at those of their ScanNet SpUNet, S3DIS MinkUNet34C and SemanticKITTI
+SPVCNN configs.
 
 1. Prints the card (nvidia-smi name and power limit), the torch and CUDA
    versions, and builds the kernels (one nvcc process per csrc/*.cu
@@ -122,13 +124,31 @@ configs/s3dis/semseg-pt-v2m1-0-base.py.
    fall): losses finite, parameters moved, MultiStepLR's lr, launches per
    step, step seconds and peak memory.
 
+10. Sparse phase: the sparse-convolution configs as written (f32) at full
+   width on the rooms and scans of phases 7, 8 and 5. First
+   ops/sparse_conv.py's sparse_conv_apply (the recomputing Function; not a
+   TPU kernel: the JAX package runs it in XLA) against its plain
+   gather-then-einsum version at the ScanNet batch's full-resolution
+   decoder conv (B=2, C_in=128, C_out=96, k=3): values, gradients, ms of
+   both, bound. Then configs/scannet/semseg-spunet-v1m1-0-base.py: 3 steps
+   at its B=12 (SGD nesterov, OneCycle, Mix3D at 0.8: a step must merge),
+   and whole-scene testing of the ScanNet room with its 10 views (votes
+   checked as in 3); configs/s3dis/semseg-minkunet34c-0-base.py: 3 steps
+   at B=12 (PolyLR); configs/semantic_kitti/semseg-spvcnn-v1m1-0-base.py:
+   one step with its K1 and K2 calls (the point branch's two
+   devoxelisations, k=3 from 2 probes) held against their plain versions,
+   then 3 steps at B=8 (AdamW, OneCycle). Each run prints the step
+   seconds, the peak memory and the clusters beyond each stride-2 level's
+   capacity per step. ``--sparse`` runs this phase alone, on data made
+   for it, and times and traces one more ScanNet SpUNet step at B=12.
+
 Each main path (the slice phase, the train phase, the REAL run, the
-ScanNet test and train runs, every train and test run of phases 8 and 9)
-runs with every kernel's launch count set to 0 just before it and read
-just after, and fails if one of its kernels never launched. The last
+ScanNet test and train runs, every train and test run of phases 8, 9 and
+10) runs with every kernel's launch count set to 0 just before it and
+read just after, and fails if one of its kernels never launched. The last
 three lines are the card, the kernels' JSON record (one entry per kernel,
 then one per new instance of the ScanNet config, then one per kernel of
-the outdoor and of the PT-v2m1 paths at its heaviest shape there) and
+the outdoor, PT-v2m1 and sparse paths at its heaviest shape there) and
 {"ok": true, "device": {...}}.
 """
 
@@ -1466,7 +1486,7 @@ def scannet_kernel_phase(trainer, batch, t0):
 
 
 def scannet_phase(device, seed, t0, card="", batch_size=4, steps=3,
-                  test=True, extra=SCANNET_BF16):
+                  test=True, extra=SCANNET_BF16, workdir=None):
     """The ScanNet PT-v2m2 config at full width with the KEY=VALUE
     overrides ``extra`` (by default bf16 compute): whole-scene testing of a
     synthetic room (10 TTA views), the new kernel instances held against
@@ -1483,8 +1503,9 @@ def scannet_phase(device, seed, t0, card="", batch_size=4, steps=3,
     t_phase = time.perf_counter()
     rooms = [make_scannet_room(s, size) for s, size in SCANNET_ROOMS]
     test_room = make_scannet_room(*SCANNET_TEST_ROOM)
-    workdir, options = scannet_setup(rooms, test_room, batch_size=batch_size,
-                                     max_steps=steps, seed=seed)
+    workdir, options = scannet_setup(rooms, test_room, workdir,
+                                     batch_size=batch_size, max_steps=steps,
+                                     seed=seed)
     options += list(extra)
     log(t0, f"ScanNet rooms: {[len(r['coord']) for r in rooms]} train, "
             f"{len(test_room['coord'])} test points")
@@ -1816,7 +1837,8 @@ def train_run(label, config, device, options, steps, path_kernels, lr_of,
     step_s = [r["step_seconds"] for r in hist]
     med = float(np.median(step_s[1:])) if len(step_s) > 1 else step_s[0]
     record = dict(batch=trainer.cfg.batch_size, points=[r["points"] for r in hist],
-                  step_seconds=step_s, median_step_seconds=med,
+                  scenes=[r["scenes"] for r in hist], step_seconds=step_s,
+                  median_step_seconds=med,
                   peak_gib=peak_gb, pool_overflow=[r["pool_overflow"] for r in hist],
                   launches_per_step=step_count.per_step())
     print(f"{label}: points/step {record['points']}; losses "
@@ -1912,7 +1934,8 @@ def check_submission(path, n, dtype, allowed):
 
 def outdoor_phase(device, seed, t0, card="", batch_size=12, steps=2,
                   small_batch_size=3, small_steps=3, full=True,
-                  extra=("model.backbone.enable_checkpoint=True",)):
+                  extra=("model.backbone.enable_checkpoint=True",),
+                  workdir=None):
     """Phase 8: the SemanticKITTI config as written (f32) at full width on
     synthetic 64-beam scans: ``steps`` train steps at ``batch_size`` with
     the KEY=VALUE overrides ``extra`` (by default checkpointing on), then
@@ -1920,15 +1943,16 @@ def outdoor_phase(device, seed, t0, card="", batch_size=12, steps=2,
     off and on; one step with bf16 compute whose K1-K6 calls are held
     against their plain versions, and ``small_steps`` more of it counted;
     whole-scan testing of the benchmark-submit configs with submit=True on
-    a SemanticKITTI test scan and a nuScenes test sweep. Returns (kernel
-    rows, launches by path, train records)."""
+    a SemanticKITTI test scan and a nuScenes test sweep. The scans are
+    written under ``workdir`` (a new temporary directory by default).
+    Returns (kernel rows, launches by path, train records)."""
     from ao_tpu_torch.utils import Config
 
     t_phase = time.perf_counter()
     scans = [make_scan(seed * 100 + s, **KITTI_RING) for s in range(4)]
     test_scan = make_scan(seed * 100 + 4, **KITTI_RING)
     sweep = make_scan(seed * 100 + 5, **NUSCENES_RING)
-    workdir = outdoor_setup(scans, test_scan, sweep)
+    workdir = outdoor_setup(scans, test_scan, sweep, workdir)
     options = kitti_options(workdir, len(scans), batch_size, steps, seed=seed)
     log(t0, f"LiDAR scans: {[len(s['coord']) for s in scans]} train, "
             f"{len(test_scan['coord'])} test points; nuScenes sweep "
@@ -2044,6 +2068,251 @@ def ptv2m1_phase(device, seed, t0, rooms, card="", steps=3, batch_size=3,
     if not on["peak_gib"] < off["peak_gib"]:
         raise RuntimeError("enable_checkpoint did not lower PT-v2m1's peak memory")
     log(t0, f"PT-v2m1 phase done in {time.perf_counter() - t_phase:.1f} s")
+    return rows, launches, records
+
+
+# ---------------------------------------------------------------------------
+# phase 10: the sparse-convolution configs (SpUNet, MinkUNet34C, SPVCNN)
+# ---------------------------------------------------------------------------
+
+SPUNET_CONFIG = os.path.join(ROOT, "configs", "scannet",
+                             "semseg-spunet-v1m1-0-base.py")
+MINKUNET_CONFIG = os.path.join(ROOT, "configs", "s3dis",
+                               "semseg-minkunet34c-0-base.py")
+SPVCNN_CONFIG = os.path.join(ROOT, "configs", "semantic_kitti",
+                             "semseg-spvcnn-v1m1-0-base.py")
+# the ScanNet SpUNet's full-resolution decoder conv: the first block's
+# conv1 takes the inverse conv's 96 channels and the 32 of the skip
+SPARSE_CONV_SHAPE = dict(c_in=96 + 32, c_out=96, kernel_size=3)
+
+
+class StageOverflow:
+    """While active, keeps the backbone's clusters beyond each stride-2
+    level's capacity (``stage_overflow``) after every train step."""
+
+    def __enter__(self):
+        from ao_tpu_torch.engines.train import Trainer
+
+        self.steps = []
+        self._orig = Trainer._step
+
+        def step(trainer, batch):
+            out = self._orig(trainer, batch)
+            self.steps.append(trainer.model.backbone.stage_overflow.tolist())
+            return out
+
+        Trainer._step = step
+        return self
+
+    def __exit__(self, *exc):
+        from ao_tpu_torch.engines.train import Trainer
+
+        Trainer._step = self._orig
+
+
+def sparse_options(data_root, n_scenes, batch_size, steps, save_path, seed,
+                   workers=6):
+    """The train entry point's KEY=VALUE overrides for ``steps`` steps at
+    ``batch_size`` on the ``n_scenes`` scenes under ``data_root``, looped so
+    that the steps fit in one epoch; evaluation and TensorBoard off."""
+    loop = -(-batch_size * steps // n_scenes)
+    return [f"save_path={save_path}", f"data.train.data_root={data_root}",
+            f"batch_size={batch_size}", f"max_steps={steps}",
+            f"num_worker={workers}", f"seed={seed}", f"data.train.loop={loop}",
+            "evaluate=False", "enable_tensorboard=False"]
+
+
+def poly_of(trainer):
+    """PolyLR per step: lr * (1 - step / (total + 1)) ** power."""
+    s, base = trainer.cfg.scheduler, trainer.cfg.optimizer.lr
+    return lambda i: base * (1 - i / (trainer.total_steps + 1)) ** s.power
+
+
+def check_sparse_conv(batch, device, card):
+    """sparse_conv_apply (the recomputing Function) against its plain
+    version (gather all K rows, one einsum, autograd) on the card, on the
+    k=3 neighbour rows of the first two scenes of a ScanNet batch at the
+    full-resolution decoder conv's widths (:data:`SPARSE_CONV_SHAPE`), with
+    random features and kernel: the output within 1e-5 of scale, the
+    feature and kernel gradients of sum(out * r) within 1e-4 of scale. Both
+    timed by CUDA events, forward alone and forward + backward. Bound: each
+    input read once and the output written once at the memory rate,
+    against 2 C_in C_out operations a valid (site, offset) pair at the f32
+    rate (the port runs f32 products without TF32)."""
+    from ao_tpu_torch.models.sparse_unet.spunet import neighbours
+    from ao_tpu_torch.ops.sparse_conv import (sparse_conv_apply,
+                                              sparse_conv_apply_plain)
+
+    mask = batch["mask"][:2].to(device)
+    dc = torch.where(mask[..., None], batch["discrete_coord"][:2].to(device), 0)
+    shape = SPARSE_CONV_SHAPE
+    idx, valid = neighbours(dc, mask, shape["kernel_size"])
+    g = torch.Generator(device=device)
+    g.manual_seed(0)
+    B, N = mask.shape
+    K = idx.shape[-1]
+    feat = torch.randn(B, N, shape["c_in"], device=device, generator=g)
+    feat = feat * mask[..., None]
+    w = torch.randn(K, shape["c_in"], shape["c_out"], device=device,
+                    generator=g) / math.sqrt(K * shape["c_in"])
+    r = torch.randn(B, N, shape["c_out"], device=device, generator=g)
+
+    def step(fn):
+        f, k = feat.clone().requires_grad_(), w.clone().requires_grad_()
+        out = fn(f, idx, valid, k)
+        (out * r).sum().backward()
+        return out.detach(), f.grad, k.grad
+
+    got, ref = step(sparse_conv_apply), step(sparse_conv_apply_plain)
+    errs = [float((a - b).abs().max() / b.abs().max()) for a, b in zip(got, ref)]
+    ok = errs[0] <= 1e-5 and max(errs[1:]) <= 1e-4
+    del got, ref
+    torch.cuda.empty_cache()
+    with torch.no_grad():
+        ms = cuda_ms(lambda: sparse_conv_apply(feat, idx, valid, w))
+        plain_ms = cuda_ms(lambda: sparse_conv_apply_plain(feat, idx, valid, w),
+                           reps=3, warmup=1)
+    train_ms = cuda_ms(lambda: step(sparse_conv_apply), reps=3, warmup=1)
+    plain_train_ms = cuda_ms(lambda: step(sparse_conv_apply_plain), reps=3,
+                             warmup=1)
+    pairs = int(valid.sum())
+    nbytes = _nbytes(feat, idx, valid, w) + B * N * shape["c_out"] * 4
+    bound_ms, by = _bound(nbytes, f32_ops=2.0 * pairs * shape["c_in"] * shape["c_out"])
+    rec = dict(shape=f"B={B} N={N} K={K} C_in={shape['c_in']} "
+                     f"C_out={shape['c_out']} valid pairs={pairs}",
+               ok=ok, rel_err=dict(out=errs[0], dfeat=errs[1], dkernel=errs[2]),
+               ms=ms, plain_ms=plain_ms, train_ms=train_ms,
+               plain_train_ms=plain_train_ms, bound_ms=bound_ms, bound_by=by,
+               library_ms=None, card=card)
+    print(json.dumps({"sparse_conv_apply": rec}), flush=True)
+    torch.cuda.empty_cache()
+    if not ok:
+        raise RuntimeError(f"sparse_conv_apply disagrees with its plain version: "
+                           f"{rec['rel_err']}")
+    return rec
+
+
+def sparse_train(label, config, device, options, steps, path_kernels, lr_of,
+                 card):
+    """A :func:`train_run` of a sparse config that also prints the clusters
+    beyond each stride-2 level's capacity, per step."""
+    with StageOverflow() as over:
+        launches, record = train_run(label, config, device, options, steps,
+                                     path_kernels, lr_of, card)
+    record["stage_overflow"] = over.steps
+    print(f"{label}: overflow per stage and step {over.steps}", flush=True)
+    return launches, record
+
+
+def sparse_phase(device, seed, t0, card="", scannet_dir=None, kitti_dir=None,
+                 s3dis_dir=None, steps=3, profile=False):
+    """Phase 10: the sparse-convolution configs as written (f32) at full
+    width on the rooms and scans of phases 7, 8 and 5 (written under
+    ``scannet_dir``, ``kitti_dir`` and ``s3dis_dir``; made here from the
+    seed where None): sparse_conv_apply held against its plain version at
+    the ScanNet batch's full-resolution decoder conv (B=2); the ScanNet
+    SpUNet config at its B=12 (SGD, OneCycle, Mix3D), then whole-scene
+    testing of the ScanNet room with its 10 views; MinkUNet34C S3DIS at
+    B=12 (PolyLR); SPVCNN SemanticKITTI at B=8 (AdamW, OneCycle), whose K1
+    and K2 calls (the two devoxelisations) are held against their plain
+    versions on one captured step. Each run: losses finite, parameters
+    moved, the schedule's lr, step seconds, peak memory, the overflow per
+    stage. With ``profile``, one more ScanNet SpUNet step at B=12 is timed
+    and traced (:func:`profile_train_step`). Returns (kernel rows, launches
+    by path, train records)."""
+    from ao_tpu_torch.models import build_model
+    from ao_tpu_torch.tools.test import main as test_main
+    from ao_tpu_torch.utils import Config
+
+    t_phase = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="ao_chip_sparse_")
+    if scannet_dir is None:
+        scannet_dir, _ = scannet_setup(
+            [make_scannet_room(s_, size) for s_, size in SCANNET_ROOMS],
+            make_scannet_room(*SCANNET_TEST_ROOM))
+    if kitti_dir is None:
+        kitti_dir = outdoor_setup([make_scan(seed * 100 + i, **KITTI_RING)
+                                   for i in range(4)])
+    if s3dis_dir is None:
+        s3dis_dir, _ = train_setup([make_room(s_, size) for s_, size in TRAIN_ROOMS])
+    sc_root = os.path.join(scannet_dir, "scannet")
+    n_sc = len(os.listdir(os.path.join(sc_root, "train")))
+    s3_root = os.path.join(s3dis_dir, "s3dis")
+    n_s3 = len(os.listdir(s3_root))
+    n_kitti = len(os.listdir(os.path.join(kitti_dir, "semantic_kitti", "dataset",
+                                          "sequences", "00", "velodyne")))
+    log(t0, f"sparse phase data: {n_sc} ScanNet, {n_s3} S3DIS rooms, "
+            f"{n_kitti} SemanticKITTI scans")
+    launches, records = {}, {}
+
+    trainer = build_trainer(sparse_options(
+        sc_root, n_sc, 2, 1, os.path.join(work, "conv"), seed, workers=2) + [
+        "mix_prob=0"], device, SPUNET_CONFIG)
+    batch = next(iter(trainer.train_loader))
+    del trainer
+    conv = check_sparse_conv(batch, device, card)
+    print(f"sparse_conv_apply {conv['shape']}: rel err {conv['rel_err']}; ms "
+          f"{conv['ms']:.3f} (plain {conv['plain_ms']:.3f}), forward + backward "
+          f"{conv['train_ms']:.3f} (plain {conv['plain_train_ms']:.3f}); bound "
+          f"{conv['bound_ms']:.4f} ({conv['bound_by']}); card {card}", flush=True)
+    del batch
+    log(t0, "sparse_conv_apply checked")
+
+    launches["spunet_train"], records["spunet_train"] = sparse_train(
+        "scannet spunet train B=12 (as written)", SPUNET_CONFIG, device,
+        sparse_options(sc_root, n_sc, 12, steps, os.path.join(work, "spunet"),
+                       seed), steps, (), onecycle_of, card)
+    rec = records["spunet_train"]
+    if not any(n < rec["batch"] for n in rec["scenes"]):
+        raise RuntimeError("no ScanNet SpUNet step was mixed by Mix3D")
+    log(t0, "ScanNet SpUNet train steps done")
+    if profile:
+        trainer = build_trainer(sparse_options(
+            sc_root, n_sc, 12, 3, os.path.join(work, "profile"), seed) + [
+            "mix_prob=0"], device, SPUNET_CONFIG)
+        batch = next(iter(trainer.train_loader))
+        print(json.dumps({"spunet_train_step_profile": dict(
+            profile_train_step(trainer, batch), card=card)}), flush=True)
+        del trainer, batch
+        torch.cuda.empty_cache()
+        log(t0, "ScanNet SpUNet step profiled")
+
+    cfg = Config.fromfile(SPUNET_CONFIG)
+    torch.manual_seed(seed)
+    weight = os.path.join(work, "spunet.pt")
+    torch.save(build_model(dict(cfg.model)).state_dict(), weight)
+    result, launches["spunet_test"] = _drive((), lambda: test_main([
+        "--config-file", SPUNET_CONFIG, "--device", str(device), "--options",
+        f"weight={weight}", f"save_path={os.path.join(work, 'spunet_test')}",
+        f"data.test.data_root={sc_root}"]))
+    names = sorted(os.listdir(os.path.join(sc_root, "val")))
+    votes = np.load(os.path.join(work, "spunet_test", "result",
+                                 names[0].replace(".pth", "_pred.npy")))
+    check_votes(votes, len(cfg.data.test.test_cfg.aug_transform), num_classes=20)
+    scene = result["scenes"][0]
+    print(f"scannet spunet test: {scene['fragments']} fragments in batches "
+          f"(B, N) {scene['batches']}; scene {scene['seconds']:.2f} s; votes "
+          f"{votes.shape}; mIoU {result['mIoU']:.4f} (random weights); card "
+          f"{card}", flush=True)
+    torch.cuda.empty_cache()
+    log(t0, "ScanNet SpUNet test done")
+
+    launches["minkunet_train"], records["minkunet_train"] = sparse_train(
+        "s3dis minkunet34c train B=12 (as written)", MINKUNET_CONFIG, device,
+        sparse_options(s3_root, n_s3, 12, steps, os.path.join(work, "mink"),
+                       seed), steps, (), poly_of, card)
+    log(t0, "MinkUNet34C train steps done")
+
+    kitti = kitti_options(kitti_dir, n_kitti, 8, steps, seed=seed)
+    graph = ("knn_window", "merge_topk")
+    rows = capture_step(SPVCNN_CONFIG, kitti + [
+        f"save_path={os.path.join(work, 'spvcnn_kernels')}"], device, graph, t0,
+        "SPVCNN train step")
+    launches["spvcnn_train"], records["spvcnn_train"] = sparse_train(
+        "kitti spvcnn train B=8 (as written)", SPVCNN_CONFIG, device, kitti + [
+            f"save_path={os.path.join(work, 'spvcnn')}"], steps, graph,
+        onecycle_of, card)
+    log(t0, f"sparse phase done in {time.perf_counter() - t_phase:.1f} s")
     return rows, launches, records
 
 
@@ -2262,10 +2531,15 @@ def run(device, seed, t0, room_size=(4.8, 4.0, 2.6), train_steps=5, card="",
     real_launches, real_per_step = ao_phase(device, seed, t0, rooms, room,
                                             train_steps_count.per_step(), card)
 
+    sc_dir = tempfile.mkdtemp(prefix="ao_chip_scannet_")
     (sc_rows, sc_launches, sc_inst, sc_per_step,
-     sc_inst_per_step) = scannet_phase(device, seed, t0, card)
-    out_rows, out_launches, _ = outdoor_phase(device, seed, t0, card)
+     sc_inst_per_step) = scannet_phase(device, seed, t0, card, workdir=sc_dir)
+    kitti_dir = tempfile.mkdtemp(prefix="ao_chip_outdoor_")
+    out_rows, out_launches, _ = outdoor_phase(device, seed, t0, card,
+                                              workdir=kitti_dir)
     m1_rows, m1_launches, _ = ptv2m1_phase(device, seed, t0, rooms, card)
+    sp_rows, sp_launches, _ = sparse_phase(device, seed, t0, card, sc_dir,
+                                           kitti_dir, workdir)
 
     # one entry per kernel: its heaviest captured shape of the S3DIS paths
     kernels = []
@@ -2304,10 +2578,11 @@ def run(device, seed, t0, room_size=(4.8, 4.0, 2.6), train_steps=5, card="",
             bound_ms=row["bound_ms"], bound_by=row["bound_by"],
             library_ms=row["library_ms"],
             shape=f"{row['phase']}: {row['shape']}"))
-    # and one per kernel of the outdoor and PT-v2m1 paths, at its heaviest
-    # shape there, with the launches of those paths
+    # and one per kernel of the outdoor, PT-v2m1 and sparse paths, at its
+    # heaviest shape there, with the launches of those paths
     for tag, phase_rows, paths in (("outdoor", out_rows, out_launches),
-                                   ("ptv2m1", m1_rows, m1_launches)):
+                                   ("ptv2m1", m1_rows, m1_launches),
+                                   ("sparse", sp_rows, sp_launches)):
         for name in sorted({r["name"] for r in phase_rows}):
             row = max((r for r in phase_rows if r["name"] == name),
                       key=lambda r: r["bound_ms"])
@@ -2348,6 +2623,11 @@ def main():
         default=["model.backbone.enable_checkpoint=True"], metavar="KEY=VALUE",
         help="config overrides of the SemanticKITTI run (default: "
              "checkpointing on; none: the config as written)")
+    parser.add_argument(
+        "--sparse", action="store_true",
+        help="run only phase 10 (the sparse-convolution configs, on rooms and "
+             "scans made for it) with a traced ScanNet SpUNet step, and no "
+             "kernel record")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA card (torch.cuda.is_available() is "
@@ -2378,7 +2658,10 @@ def main():
         outdoor_phase(torch.device("cuda"), args.seed, t0, card,
                       batch_size=args.outdoor_batch, full=False,
                       extra=args.outdoor_options)
-    if args.scannet_batch is not None or args.outdoor_batch is not None:
+    if args.sparse:
+        sparse_phase(torch.device("cuda"), args.seed, t0, card, profile=True)
+    if (args.scannet_batch is not None or args.outdoor_batch is not None
+            or args.sparse):
         faulthandler.cancel_dump_traceback_later()
         print(f"card: {card}", flush=True)
         return 0

@@ -9,7 +9,8 @@ phase (ScanNetDataset, its transforms, Mix3D, OneCycle, the tester's
 10 views), outdoor phase (SemanticKITTIDataset, PointClip, a train step
 with enable_checkpoint, the nuScenes test with the submission writer) and
 PT-v2m1 phase run end to end (on the CPU, at a tiny size) with JAX and
-ao_tpu made unimportable; and every PT-v2 config loads through the port's
+ao_tpu made unimportable; and every PT-v2 config, and every
+sparse-convolution config (building its model), loads through the port's
 Config without importing ao_tpu (the ScanNet200 configs' own import of
 ao_tpu's class names is served from the port's copy)."""
 
@@ -116,7 +117,12 @@ print("CONFIGS", len(files), names.count(200))
 
 
 def test_port_runs_without_jax_or_ao_tpu(tmp_path):
-    env = dict(os.environ, PYTHONPATH=ROOT, TMPDIR=str(tmp_path))
+    # one intra-op thread: beside the other test workers a full thread pool
+    # of many small ops oversubscribes the cores (the child takes about
+    # 70 s on one thread alone, and timed out at 300 s with eight under
+    # six busy workers)
+    env = dict(os.environ, PYTHONPATH=ROOT, TMPDIR=str(tmp_path),
+               OMP_NUM_THREADS="1")
     res = subprocess.run(
         [sys.executable, "-c", _CHILD], cwd=ROOT, env=env,
         capture_output=True, text=True, timeout=300,
@@ -143,6 +149,43 @@ def test_every_ptv2_config_loads_without_ao_tpu():
     assert n >= 20 and n200 == 4
 
 
+_SPARSE_CONFIGS = r"""
+import glob, sys
+for name in ("jax", "ao_tpu", "flax", "optax"):
+    sys.modules[name] = None
+from ao_tpu_torch.models import build_model
+from ao_tpu_torch.utils import Config
+files = sorted(glob.glob("configs/*/semseg-spunet-*.py")
+               + glob.glob("configs/*/semseg-minkunet34c-*.py")
+               + glob.glob("configs/*/semseg-spvcnn-*.py"))
+types = set()
+for f in files:
+    cfg = Config.fromfile(f)
+    types.add(cfg.model.backbone.type)
+    build_model(dict(cfg.model, backbone=dict(
+        cfg.model.backbone, channels=(8,) * 8, layers=(1,) * 8)))
+assert not any(k == "jax" or k.startswith(("jax.", "ao_tpu.", "flax", "optax"))
+               for k, v in sys.modules.items() if v is not None)
+print("SPARSE", len(files), " ".join(sorted(types)))
+"""
+
+
+def test_every_sparse_config_loads_without_ao_tpu():
+    """All 27 sparse-convolution semseg configs (configs/*/semseg-spunet-*,
+    semseg-minkunet34c-* and semseg-spvcnn-*) load through the port's
+    Config and build their model (at a narrow width) in a process where
+    jax and ao_tpu are unimportable, importing no ao_tpu module."""
+    res = subprocess.run(
+        [sys.executable, "-c", _SPARSE_CONFIGS], cwd=ROOT,
+        env=dict(os.environ, PYTHONPATH=ROOT), capture_output=True, text=True,
+        timeout=120,
+    )
+    assert res.returncode == 0, res.stderr[-4000:]
+    n, *types = res.stdout.split("SPARSE")[1].split()
+    assert int(n) == 27
+    assert types == ["MinkUNet34C", "SPVCNN", "SpUNet-v1m1", "SpUNet-v1m2"]
+
+
 def test_port_sources_name_no_jax_no_ao_tpu_no_cpp_extension():
     files = [os.path.join(ROOT, "chip_smoke.py")]
     for d, _, names in os.walk(os.path.join(ROOT, "ao_tpu_torch")):
@@ -167,7 +210,11 @@ def test_port_sources_name_no_jax_no_ao_tpu_no_cpp_extension():
                 "datasets/semantic_kitti.py", "datasets/nuscenes.py",
                 "datasets/scannet_meta.py", "engines/test.py",
                 "utils/config.py", "models/point_transformer_v2/ptv2m2.py",
-                "models/point_transformer_v2/convert.py", "ops/grouping.py"):
+                "models/point_transformer_v2/convert.py", "ops/grouping.py",
+                "ops/sparse_conv.py", "models/sparse_unet/spunet.py",
+                "models/sparse_unet/mink_spvcnn.py",
+                "models/sparse_unet/convert.py", "datasets/misc_datasets.py",
+                "engines/hooks/misc.py", "models/default.py"):
         assert f"ao_tpu_torch/{mod}" in names
     # the one place that names an ao_tpu module: the module name that the
     # config loader serves from the port's copy (a sys.modules key, never
