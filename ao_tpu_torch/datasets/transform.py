@@ -1,8 +1,10 @@
 """Host-side point-cloud transforms of the S3DIS, ScanNet, SemanticKITTI
 and nuScenes train and test paths.
 
-Port of the transforms of ao_tpu/datasets/transform.py that the PT-v2
-configs of those datasets name, with the same semantics (FNV-1a voxel
+Port of the transforms of ao_tpu/datasets/transform.py that the PT-v2,
+sparse, CAC, PointGroup and MSC configs of those datasets name (the last
+two add InstanceParser, ContrastiveViewsGenerator and RandomColorJitter),
+with the same semantics (FNV-1a voxel
 hashing, train and test GridSample modes, random sphere crops, dropout,
 rotations, elastic distortion, the LiDAR range clip; ScanNet's
 limited-annotation
@@ -14,6 +16,7 @@ stay numpy until ``collate_fn``; randomness comes from a
 from __future__ import annotations
 
 import copy
+import numbers
 from collections.abc import Mapping, Sequence
 from typing import Optional
 
@@ -513,6 +516,172 @@ class GridSample:
             hashed *= np.uint64(1099511628211)
             hashed = np.bitwise_xor(hashed, arr[:, j])
         return hashed
+
+
+def rgb_to_grayscale(color, num_output_channels=1):
+    """ITU-R 601-2 luma of RGB rows, one channel or repeated to three."""
+    if color.shape[-1] < 3:
+        raise TypeError("need >=3 color channels")
+    if num_output_channels not in (1, 3):
+        raise ValueError("num_output_channels must be 1 or 3")
+    gray = (
+        0.2989 * color[..., 0] + 0.587 * color[..., 1] + 0.114 * color[..., 2]
+    ).astype(color.dtype)[..., None]
+    if num_output_channels == 3:
+        gray = np.broadcast_to(gray, color.shape)
+    return gray
+
+
+def _rgb_to_hsv(rgb):
+    """RGB in [0, 1] to (h, s, v); hue from the first maximal channel."""
+    v = rgb.max(-1)
+    c = v - rgb.min(-1)
+    s = np.where(v > 0, c / np.where(v > 0, v, 1.0), 0.0)
+    safe_c = np.where(c > 0, c, 1.0)
+    r, g, b = rgb[..., 0], rgb[..., 1], rgb[..., 2]
+    hue_by_dom = np.stack([np.mod((g - b) / safe_c, 6.0),
+                           (b - r) / safe_c + 2.0,
+                           (r - g) / safe_c + 4.0], axis=0)
+    h = np.take_along_axis(hue_by_dom, rgb.argmax(-1)[None], axis=0)[0] / 6.0
+    return np.where(c > 0, h, 0.0), s, v
+
+
+def _hsv_to_rgb(h, s, v):
+    """HSV in [0, 1] to RGB: channel_n = v - v s clip(min(k, 4 - k), 0, 1),
+    k = (n + 6 h) mod 6, n = 5, 3, 1."""
+
+    def channel(n):
+        k = np.mod(n + h * 6.0, 6.0)
+        return v - v * s * np.clip(np.minimum(k, 4.0 - k), 0.0, 1.0)
+
+    return np.stack([channel(5.0), channel(3.0), channel(1.0)], axis=-1)
+
+
+@TRANSFORMS.register_module()
+class RandomColorJitter:
+    """Brightness, contrast, saturation and hue jitter in a random order,
+    each applied with probability ``p`` (torchvision's semantics). The
+    draws: the order (a permutation of 4), one factor per enabled
+    adjustment, then one uniform per adjustment in that order."""
+
+    def __init__(self, brightness=0, contrast=0, saturation=0, hue=0, p=0.95,
+                 generator: Optional[torch.Generator] = None):
+        self.brightness = self._check(brightness, "brightness")
+        self.contrast = self._check(contrast, "contrast")
+        self.saturation = self._check(saturation, "saturation")
+        self.hue = self._check(hue, "hue", center=0, bound=(-0.5, 0.5),
+                               clip_first_on_zero=False)
+        self.p = p
+        self.generator = generator
+
+    @staticmethod
+    def _check(value, name, center=1, bound=(0, float("inf")),
+               clip_first_on_zero=True):
+        """A jitter strength as a (lo, hi) sampling range, or None when it
+        is degenerate (no-op)."""
+        if isinstance(value, numbers.Number):
+            if value < 0:
+                raise ValueError(f"{name} must be non-negative")
+            lo, hi = center - float(value), center + float(value)
+            if clip_first_on_zero:
+                lo = max(lo, 0.0)
+        elif isinstance(value, (tuple, list)) and len(value) == 2:
+            lo, hi = float(value[0]), float(value[1])
+            if not bound[0] <= lo <= hi <= bound[1]:
+                raise ValueError(f"{name} out of bounds {bound}")
+        else:
+            raise TypeError(f"{name} must be number or pair")
+        return None if lo == hi == center else (lo, hi)
+
+    @staticmethod
+    def _blend(c1, c2, ratio):
+        return (float(ratio) * c1 + (1.0 - float(ratio)) * c2).clip(
+            0, 255).astype(c1.dtype)
+
+    def _draw(self, rng):
+        return None if rng is None else _uniform(rng[0], rng[1], 1,
+                                                 self.generator)[0]
+
+    def __call__(self, data_dict):
+        if "color" not in data_dict:
+            return data_dict
+        order = torch.randperm(4, generator=self.generator).tolist()
+        b, c, s, h = (self._draw(r) for r in (self.brightness, self.contrast,
+                                              self.saturation, self.hue))
+        for fn_id in order:
+            factor = (b, c, s, h)[fn_id]
+            if factor is None or _uniform(0.0, 1.0, 1, self.generator)[0] >= self.p:
+                continue
+            color = data_dict["color"]
+            if fn_id == 0:
+                color = self._blend(color, np.zeros_like(color), factor)
+            elif fn_id == 1:
+                color = self._blend(color, np.mean(rgb_to_grayscale(color)), factor)
+            elif fn_id == 2:
+                color = self._blend(color, rgb_to_grayscale(color), factor)
+            else:
+                hh, ss, vv = _rgb_to_hsv(color / 255.0)
+                color = (_hsv_to_rgb(np.mod(hh + factor, 1.0), ss, vv)
+                         * 255.0).astype(color.dtype)
+            data_dict["color"] = color
+        return data_dict
+
+
+@TRANSFORMS.register_module()
+class ContrastiveViewsGenerator:
+    """Two augmented copies of ``view_keys`` as ``view1_<key>`` and
+    ``view2_<key>``: the view transforms run on view 1, then on view 2,
+    drawing from ``generator`` (given to every view transform that draws)."""
+
+    def __init__(self, view_keys=("coord", "color", "normal", "origin_coord"),
+                 view_trans_cfg=None,
+                 generator: Optional[torch.Generator] = None):
+        self.view_keys = view_keys
+        self.view_trans = Compose(view_trans_cfg)
+        for t in self.view_trans.transforms:
+            if hasattr(t, "generator"):
+                t.generator = generator
+
+    def __call__(self, data_dict):
+        for prefix in ("view1_", "view2_"):
+            view = self.view_trans({k: data_dict[k].copy() for k in self.view_keys})
+            for k, v in view.items():
+                data_dict[prefix + k] = v
+        return data_dict
+
+
+@TRANSFORMS.register_module()
+class InstanceParser:
+    """Instance ids renumbered 0.. over the points whose segment is not in
+    ``segment_ignore_index`` (the others ``instance_ignore_index``), each
+    point's instance centre (the mean of its instance's coords; ignored
+    points ``instance_ignore_index`` in all three) and each instance's
+    bounding box (min, max)."""
+
+    def __init__(self, segment_ignore_index=(-1, 0, 1), instance_ignore_index=-1):
+        self.segment_ignore_index = segment_ignore_index
+        self.instance_ignore_index = instance_ignore_index
+
+    def __call__(self, data_dict):
+        coord = data_dict["coord"]
+        segment = data_dict["segment"]
+        instance = data_dict["instance"].copy()
+        mask = ~np.isin(segment, self.segment_ignore_index)
+        instance[~mask] = self.instance_ignore_index
+        unique, inverse = np.unique(instance[mask], return_inverse=True)
+        instance_num = len(unique)
+        instance[mask] = inverse
+        center = np.ones((coord.shape[0], 3)) * self.instance_ignore_index
+        bbox = np.ones((instance_num, 6)) * self.instance_ignore_index
+        for iid in range(instance_num):
+            m = instance == iid
+            pts = coord[m]
+            center[m] = pts.mean(0)
+            bbox[iid] = np.concatenate([pts.min(0), pts.max(0)])
+        data_dict["instance"] = instance
+        data_dict["instance_center"] = center
+        data_dict["bbox"] = bbox
+        return data_dict
 
 
 class Compose:

@@ -68,7 +68,10 @@ class TesterBase:
 
     @torch.inference_mode()
     def forward(self, coord, feat, mask, discrete_coord=None):
-        return self.model(coord, feat, mask, discrete_coord=discrete_coord)
+        """The model's logits (its ``seg_logits`` where it returns a dict,
+        as CAC does)."""
+        out = self.model(coord, feat, mask, discrete_coord=discrete_coord)
+        return out["seg_logits"] if isinstance(out, dict) else out
 
     @staticmethod
     def batches(frags, pad_multiple, fb=8):

@@ -11,9 +11,11 @@ InformationWriter, SemSegEvaluator, CheckpointSaver).
 One train step: forward in train mode (batch-statistic BatchNorms,
 stochastic depth; the batch's ``discrete_coord``, when it has one, goes to
 the model with coord, feat and mask), the configured criteria over the
-valid points, backward, ``optimizer.step()`` and a per-step
-``scheduler.step()``. It reports the
-metrics ``loss``, ``pool_overflow`` (clusters beyond the grid pools' static
+valid points (or, for a model that owns its loss, such as CAC, whose
+``forward`` takes ``segment``: the loss it returns, with its terms),
+backward, ``optimizer.step()`` and a per-step ``scheduler.step()``. It
+reports the metrics ``loss`` (and the model's ``*_loss`` terms),
+``pool_overflow`` (clusters beyond the grid pools' static
 capacities; 0 when they suffice) and ``grad_norm`` (the L2 norm of all
 gradients; finite iff every gradient is), read back to the host once a
 step. ``cfg.max_steps`` (optional) stops training after that many steps;
@@ -32,6 +34,7 @@ parallelism over several cards.
 from __future__ import annotations
 
 import functools
+import inspect
 import os
 from typing import Any, Dict, List, Optional
 
@@ -214,22 +217,44 @@ class Trainer(TrainerBase):
         device tensors."""
         return self._step(batch)[0]
 
+    @property
+    def _takes_segment(self) -> bool:
+        """True for a model that owns its loss (its forward takes
+        ``segment``)."""
+        return "segment" in inspect.signature(self.model.forward).parameters
+
+    def _forward(self, inputs, segment):
+        """(loss, logits (B, N, C), the loss's terms) of the model on one
+        batch. A model that owns its loss (``forward`` takes ``segment``)
+        returns a dict: its ``loss``, its ``seg_logits`` and every
+        ``*_loss`` term; otherwise the criteria score the logits."""
+        segment = segment.long()
+        if not self._takes_segment:
+            logits = self.model(**inputs)
+            return self.criteria(logits, segment, inputs["mask"]), logits, {}
+        out = self.model(**inputs, segment=segment)
+        terms = {k: v.detach() for k, v in out.items() if k.endswith("_loss")}
+        return out["loss"], out["seg_logits"], terms
+
+    def _loss(self, batch):
+        """(loss, the step's logits, the loss's terms) of a batch in train
+        mode."""
+        return self._forward(*self._to_device(batch))
+
     def _step(self, batch):
         """One optimizer step; returns (the metrics as device tensors, the
-        step's logits (B, N, C), detached)."""
+        step's logits, detached)."""
         self.model.train()
-        inputs, segment = self._to_device(batch)
-        logits = self.model(**inputs)
-        loss = self.criteria(logits, segment.long(), inputs["mask"])
+        loss, logits, terms = self._loss(batch)
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()
         grad_norm = torch.nn.utils.get_total_norm(
             [p.grad for p in self.model.parameters() if p.grad is not None])
         self.optimizer.step()
         self.scheduler.step()
-        metrics = dict(loss=loss.detach(), grad_norm=grad_norm,
+        metrics = dict(loss=loss.detach(), **terms, grad_norm=grad_norm,
                        pool_overflow=self.model.backbone.pool_overflow)
-        return metrics, logits.detach()
+        return metrics, None if logits is None else logits.detach()
 
     def finished(self) -> bool:
         return self.step >= self.max_steps
@@ -259,10 +284,15 @@ class Trainer(TrainerBase):
         loss_dict = {k: float(v) for k, v in metrics.items()}  # waits for the step
         self.comm_info["loss_dict"] = loss_dict
         self.step += 1
+        masks = self._masks(batch)
         self.history.append(dict(
             loss_dict, data_seconds=self.comm_info["data_seconds"], lr=lr,
-            points=int(batch["mask"].sum()), scenes=int(batch["mask"].shape[0]),
-            epoch=self.epoch))
+            points=sum(int(m.sum()) for m in masks),
+            scenes=int(masks[0].shape[0]), epoch=self.epoch))
+
+    def _masks(self, batch):
+        """The batch's (B, N) point masks."""
+        return [batch["mask"]]
 
     def current_lr(self) -> float:
         """The learning rate of the last step taken."""
@@ -281,8 +311,8 @@ class Trainer(TrainerBase):
         self.model.eval()
         inputs, segment = self._to_device(batch)
         coord, mask = inputs["coord"], inputs["mask"]
-        logits = self.model(**inputs)
-        loss = float(self.criteria(logits, segment.long(), mask))
+        loss, logits, _ = self._forward(inputs, segment)
+        loss = float(loss)
         pred = logits.argmax(-1)
         K = self.cfg.data.num_classes
         ignore = self.cfg.data.get("ignore_index", -1)

@@ -139,11 +139,17 @@ def _block_seq(w: _Writer, t, path, qkv_bias=True):
 def from_jax_variables(params, batch_stats=None, qkv_bias: bool = True):
     """Map ao_tpu PT-v2m2 flax ``params`` / ``batch_stats`` (nested dicts of
     arrays) to the port's ``state_dict`` of torch tensors. A DefaultSegmentor
-    tree (a ``backbone`` subtree) gives ``backbone.``-prefixed names. With
+    tree (a ``backbone`` subtree) gives ``backbone.``-prefixed names, and a
+    task head beside it (CAC on PT-v2m2) its own, as
+    ``sparse_unet.convert.head_state_dict`` maps them. With
     ``batch_stats`` None only the parameters are mapped (a gradient tree
     maps this way)."""
-    prefix = ""
+    prefix, head = "", {}
     if "backbone" in params:
+        from ..sparse_unet.convert import head_state_dict
+
+        head = head_state_dict(dict(params=params, batch_stats=batch_stats)
+                               if batch_stats is not None else params)
         params = params["backbone"]
         if batch_stats is not None:
             batch_stats = batch_stats.get("backbone", {})
@@ -171,8 +177,9 @@ def from_jax_variables(params, batch_stats=None, qkv_bias: bool = True):
         w.dense(("Dense_1",), "seg_head.0")
         w.pbn(("PointBatchNorm_1",), "seg_head.1")
         w.dense(("Dense_2",), "seg_head.3")
-    return {prefix + k: torch.from_numpy(np.array(v))
-            for k, v in w.out.items()}
+    out = {prefix + k: v for k, v in w.out.items()}
+    out.update(head)
+    return {k: torch.from_numpy(np.array(v)) for k, v in out.items()}
 
 
 def load_jax_npz(path: str):

@@ -3,7 +3,9 @@
     python -m ao_tpu_torch.tools.test --config-file configs/s3dis/semseg-pt-v2m2-0-base.py \
         --options weight=<model.pt | jax_variables.npz> save_path=<dir>
 
-Runs on the card unless ``--device cpu`` is given.
+Runs on the card unless ``--device cpu`` is given. The config's ``test``
+names the tester; a config without one (the CAC configs, which inherit
+no default_runtime.py) gets that file's SemSegTester.
 """
 
 from __future__ import annotations
@@ -15,6 +17,8 @@ import torch
 
 from ..engines import TEST
 from ..utils import Config, DictAction
+
+DEFAULT_TEST = dict(type="SemSegTester", verbose=True)
 
 
 def main(argv=None):
@@ -30,7 +34,8 @@ def main(argv=None):
     if cfg.get("seed") is not None:
         torch.manual_seed(cfg.seed)
     os.makedirs(cfg.save_path, exist_ok=True)
-    tester = TEST.build(dict(cfg.test, cfg=cfg, device=args.device))
+    tester = TEST.build(dict(cfg.get("test", DEFAULT_TEST), cfg=cfg,
+                             device=args.device))
     return tester()
 
 

@@ -19,10 +19,12 @@ import numpy as np
 from ..engines import Trainer, default_argument_parser, default_config_parser
 
 
-def main(argv=None):
-    args = default_argument_parser(__doc__.splitlines()[0]).parse_args(argv)
+def run(trainer_cls, description, argv=None):
+    """Parse the command line, train with ``trainer_cls`` and log the
+    median step seconds and data wait; returns the trainer."""
+    args = default_argument_parser(description).parse_args(argv)
     cfg = default_config_parser(args.config_file, args.options)
-    trainer = Trainer(cfg, device=args.device)
+    trainer = trainer_cls(cfg, device=args.device)
     trainer.train()
     hist = trainer.history[1:]  # the first step pays the warm-up
     if hist:
@@ -32,6 +34,10 @@ def main(argv=None):
             f"{np.median([r['step_seconds'] for r in hist]):.4f} s a step, "
             f"data wait {np.median([r['data_seconds'] for r in hist]):.4f} s")
     return trainer
+
+
+def main(argv=None):
+    return run(Trainer, __doc__.splitlines()[0], argv)
 
 
 if __name__ == "__main__":

@@ -13,7 +13,10 @@ update is the JAX package's optax one:
 * Adam: optax.chain(add_decayed_weights(wd), adam), the decay added to the
   gradient.
 
-Parameter groups (``param_dicts``) are not ported.
+Each takes and ignores the other optimizers' keys, as the JAX package's
+do: a config that replaces its base's SGD by AdamW without ``_delete_``
+(configs/scannet/semseg-cac-v1m1-2-ptv2-lovasz.py) keeps ``momentum`` and
+``nesterov``. Parameter groups (``param_dicts``) are not ported.
 """
 
 from __future__ import annotations
@@ -26,19 +29,19 @@ OPTIMIZERS = Registry("optimizers")
 
 
 @OPTIMIZERS.register_module()
-def AdamW(params, lr, betas=(0.9, 0.999), eps=1e-8, weight_decay=0.01):
+def AdamW(params, lr, betas=(0.9, 0.999), eps=1e-8, weight_decay=0.01, **_):
     return torch.optim.AdamW(params, lr=lr, betas=tuple(betas), eps=eps,
                              weight_decay=weight_decay)
 
 
 @OPTIMIZERS.register_module()
-def SGD(params, lr, momentum=0.9, weight_decay=0.0, nesterov=False):
+def SGD(params, lr, momentum=0.9, weight_decay=0.0, nesterov=False, **_):
     return torch.optim.SGD(params, lr=lr, momentum=momentum,
                            weight_decay=weight_decay, nesterov=nesterov)
 
 
 @OPTIMIZERS.register_module()
-def Adam(params, lr, betas=(0.9, 0.999), eps=1e-8, weight_decay=0.0):
+def Adam(params, lr, betas=(0.9, 0.999), eps=1e-8, weight_decay=0.0, **_):
     return torch.optim.Adam(params, lr=lr, betas=tuple(betas), eps=eps,
                             weight_decay=weight_decay)
 

@@ -7,9 +7,10 @@ under data/ or exp/: the scenes are synthetic and the weights are random.
 PT-v2m2 runs at the full width of configs/s3dis/semseg-pt-v2m2-0-base.py,
 then of configs/scannet/semseg-pt-v2m2-0-base.py and
 configs/semantic_kitti/semseg-pt-v2m2-0-base.py, PT-v2m1 at that of
-configs/s3dis/semseg-pt-v2m1-0-base.py, and the sparse-convolution U-Nets
+configs/s3dis/semseg-pt-v2m1-0-base.py, the sparse-convolution U-Nets
 at those of their ScanNet SpUNet, S3DIS MinkUNet34C and SemanticKITTI
-SPVCNN configs.
+SPVCNN configs, and the SpUNet task heads (CAC, PointGroup, MSC) at those
+of their ScanNet and S3DIS configs.
 
 1. Prints the card (nvidia-smi name and power limit), the torch and CUDA
    versions, and builds the kernels (one nvcc process per csrc/*.cu
@@ -142,14 +143,37 @@ SPVCNN configs.
    capacity per step. ``--sparse`` runs this phase alone, on data made
    for it, and times and traces one more ScanNet SpUNet step at B=12.
 
+11. Heads phase: the SpUNet task heads' configs as written (f32) at full
+   width on the rooms of phases 7 and 5. CAC:
+   configs/scannet/semseg-cac-v1m1-0-spunet-base.py, 3 steps at its B=12
+   (Mix3D, SGD nesterov, OneCycle; its four loss terms finite), then
+   whole-scene testing of the ScanNet room with its 10 views (votes checked
+   as in 3); semseg-cac-v1m1-2-ptv2-lovasz.py at B=12 with
+   enable_checkpoint (as written PT-v2m2 in f32 does not fit B=12) and
+   in_channels=6, the features its data gives (:data:`CAC_PTV2_IN`): one
+   step whose K1 and K2 calls are held against their plain versions, then
+   3 counted. PointGroup: configs/scannet/insseg-pointgroup-v1m1-0-
+   spunet-base.py through ao_tpu_torch.tools.train_insseg, 3 steps at
+   B=12 (PolyLR) whose cut epoch ends with the InsSegEvaluator on the val
+   room (mAP, AP50, AP25 finite; the same hook on the room's own labels
+   must make proposals and score AP50 1; the host seconds of clustering
+   and of the AP table printed); the S3DIS config 3 steps at B=12. MSC:
+   configs/scannet/pretrain-msc-v1m1-0-spunet-base.py through
+   ao_tpu_torch.tools.train_pretrain at its B=32 or, where that does not
+   fit (the peak reached printed), the next of 16, 12, 8, 7, 6, 4, 2 that
+   does: 3 steps with the NCE, colour and normal losses finite and matched
+   pairs on every step, and the matching kNN timed on one of its batches;
+   then one step of pretrain-msc-v1m2-0-spunet-csc.py at that batch. Each run prints its step seconds, data wait and peak
+   memory. ``--heads`` runs this phase alone, on data made for it.
+
 Each main path (the slice phase, the train phase, the REAL run, the
-ScanNet test and train runs, every train and test run of phases 8, 9 and
-10) runs with every kernel's launch count set to 0 just before it and
+ScanNet test and train runs, every train and test run of phases 8, 9, 10
+and 11) runs with every kernel's launch count set to 0 just before it and
 read just after, and fails if one of its kernels never launched. The last
 three lines are the card, the kernels' JSON record (one entry per kernel,
 then one per new instance of the ScanNet config, then one per kernel of
-the outdoor, PT-v2m1 and sparse paths at its heaviest shape there) and
-{"ok": true, "device": {...}}.
+the outdoor, PT-v2m1, sparse and CAC paths at its heaviest shape there)
+and {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -940,13 +964,15 @@ def build_trainer(options, device, config=BASE_CONFIG):
     return Trainer(default_config_parser(config, opts), device=device)
 
 
-def run_train(device, options, config=BASE_CONFIG):
-    """Training on ``config`` through the port's entry point; returns the
-    trainer."""
-    from ao_tpu_torch.tools.train import main as train_main
+def run_train(device, options, config=BASE_CONFIG, entry="train"):
+    """Training on ``config`` through the port's entry point
+    ``ao_tpu_torch.tools.<entry>`` (train, train_insseg, train_pretrain);
+    returns the trainer."""
+    import importlib
 
-    return train_main(["--config-file", config, "--device", str(device),
-                       "--options", *options])
+    main = importlib.import_module(f"ao_tpu_torch.tools.{entry}").main
+    return main(["--config-file", config, "--device", str(device),
+                 "--options", *options])
 
 
 def check_train(trainer, steps):
@@ -1819,17 +1845,18 @@ def multistep_of(trainer):
 
 
 def train_run(label, config, device, options, steps, path_kernels, lr_of,
-              card):
-    """One train run through the entry point, driven with the launch counts
-    set to 0 just before and read just after: losses and gradient norms
-    finite, the parameters moved, each step's lr the schedule's. Prints the
-    step seconds, the peak memory, the overflow counts and the launches per
-    step. Returns (launches, launches per step, record)."""
+              card, entry="train", keep=False):
+    """One train run through the entry point ``entry`` (:func:`run_train`),
+    driven with the launch counts set to 0 just before and read just after:
+    losses and gradient norms finite, the parameters moved, each step's lr
+    the schedule's. Prints the step seconds, the peak memory, the overflow
+    counts and the launches per step. Returns (launches, record), and the
+    trainer as well with ``keep``."""
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     with StepLaunches() as step_count:
         trainer, launches = _drive(path_kernels, lambda: run_train(
-            device, options, config))
+            device, options, config, entry))
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
     changed, n_params = check_train(trainer, steps)
     check_lr(trainer, lr_of(trainer), label)
@@ -1852,6 +1879,9 @@ def train_run(label, config, device, options, steps, path_kernels, lr_of,
           f"{[round(r['data_seconds'], 4) for r in hist]}; peak memory "
           f"{peak_gb:.2f} GiB; launches per step {record['launches_per_step']};"
           f" card {card}", flush=True)
+    record["history"] = hist
+    if keep:
+        return launches, record, trainer
     del trainer
     torch.cuda.empty_cache()
     return launches, record
@@ -2193,15 +2223,15 @@ def check_sparse_conv(batch, device, card):
 
 
 def sparse_train(label, config, device, options, steps, path_kernels, lr_of,
-                 card):
+                 card, **kw):
     """A :func:`train_run` of a sparse config that also prints the clusters
     beyond each stride-2 level's capacity, per step."""
     with StageOverflow() as over:
-        launches, record = train_run(label, config, device, options, steps,
-                                     path_kernels, lr_of, card)
-    record["stage_overflow"] = over.steps
+        out = train_run(label, config, device, options, steps, path_kernels,
+                        lr_of, card, **kw)
+    out[1]["stage_overflow"] = over.steps
     print(f"{label}: overflow per stage and step {over.steps}", flush=True)
-    return launches, record
+    return out
 
 
 def sparse_phase(device, seed, t0, card="", scannet_dir=None, kitti_dir=None,
@@ -2313,6 +2343,258 @@ def sparse_phase(device, seed, t0, card="", scannet_dir=None, kitti_dir=None,
             f"save_path={os.path.join(work, 'spvcnn')}"], steps, graph,
         onecycle_of, card)
     log(t0, f"sparse phase done in {time.perf_counter() - t_phase:.1f} s")
+    return rows, launches, records
+
+
+CAC_CONFIG = os.path.join(ROOT, "configs", "scannet",
+                          "semseg-cac-v1m1-0-spunet-base.py")
+CAC_PTV2_CONFIG = os.path.join(ROOT, "configs", "scannet",
+                               "semseg-cac-v1m1-2-ptv2-lovasz.py")
+PG_CONFIG = os.path.join(ROOT, "configs", "scannet",
+                         "insseg-pointgroup-v1m1-0-spunet-base.py")
+PG_S3DIS_CONFIG = os.path.join(ROOT, "configs", "s3dis",
+                               "insseg-pointgroup-v1m1-0-spunet-base.py")
+MSC_CONFIG = os.path.join(ROOT, "configs", "scannet",
+                          "pretrain-msc-v1m1-0-spunet-base.py")
+CSC_CONFIG = os.path.join(ROOT, "configs", "scannet",
+                          "pretrain-msc-v1m2-0-spunet-csc.py")
+CAC_TERMS = ("seg_loss", "pre_loss", "pre_self_loss", "kl_loss")
+# The CAC PT-v2m2 config names in_channels=9 but inherits the SpUNet base's
+# data, whose Collect gives 6 features (colour, normal): the JAX package's
+# flax Dense takes the 6 it is given, the port's Linear is built for
+# in_channels, so the run sets the 6 the data gives (ROADMAP.md section 3)
+CAC_PTV2_IN = ("model.backbone.in_channels=6",)
+# MSC's batches, tried in turn from the config's own 32 until one fits
+MSC_BATCHES = (32, 16, 12, 8, 7, 6, 4, 2)
+
+
+def check_terms(record, terms, label):
+    """Every step's ``terms`` finite."""
+    for i, r in enumerate(record["history"]):
+        bad = [t for t in terms if not np.isfinite(r[t])]
+        if bad:
+            raise RuntimeError(f"{label} step {i}: non-finite {bad} in {r}")
+
+
+def oracle_scene(batch, b, num_classes):
+    """The evaluator's inputs for scene ``b`` of a validation batch from its
+    own labels: logits one-hot (x 10) on the segment (ignored points on
+    class 0), offsets to the instance centres (0 off instances)."""
+    seg = batch["segment"][b].numpy()
+    logits = np.zeros(seg.shape + (num_classes,), np.float32)
+    logits[np.arange(len(seg)), np.maximum(seg, 0)] = 10.0
+    inst = batch["instance"][b].numpy() >= 0
+    bias = np.where(inst[:, None], batch["instance_center"][b].numpy()
+                    - batch["coord"][b].numpy(), 0.0).astype(np.float32)
+    return logits, bias
+
+
+def check_insseg(trainer, label, card):
+    """The InsSegEvaluator ran on the validation room with finite mAP, AP50
+    and AP25; then the same hook on the room's own labels (one-hot logits,
+    exact offsets; :func:`oracle_scene`) must make proposals and score
+    AP50 1. Prints both, with the host seconds of clustering and of the AP
+    table."""
+    from ao_tpu_torch.engines.train_insseg import InsSegEvaluator
+
+    res = trainer.comm_info.get("insseg_result")
+    if res is None or res["scenes"] < 1:
+        raise RuntimeError(f"{label}: the InsSegEvaluator scored no scene: {res}")
+    if not all(np.isfinite(res[k]) for k in ("all_ap", "all_ap_50", "all_ap_25")):
+        raise RuntimeError(f"{label}: non-finite AP {res}")
+    hook = next(h for h in trainer.hooks if isinstance(h, InsSegEvaluator))
+    K = trainer.cfg.data.num_classes
+    trainer.eval_scene = lambda batch: tuple(np.stack(x) for x in zip(*(
+        oracle_scene(batch, b, K) for b in range(batch["mask"].shape[0]))))
+    hook.eval()
+    oracle = trainer.comm_info["insseg_result"]
+    for name, r in (("model", res), ("labels", oracle)):
+        print(f"{label} insseg on the val room ({name}): mAP {r['all_ap']:.4f} "
+              f"AP50 {r['all_ap_50']:.4f} AP25 {r['all_ap_25']:.4f}; "
+              f"{r['proposals']} proposals; host seconds: clustering "
+              f"{r['cluster_seconds']:.4f}, AP table {r['ap_seconds']:.4f}; card "
+              f"{card}", flush=True)
+    if oracle["proposals"] < 1 or oracle["all_ap_50"] < 0.99:
+        raise RuntimeError(f"{label}: the room's own labels gave {oracle}")
+    return res, oracle
+
+
+def time_msc_knn(trainer, card):
+    """CUDA-event ms of the MSC step's matching kNN (ops/knn.py, chunked
+    above its score budget) on a batch of the trainer's loader: view 1's
+    origin coords against view 2's, k = matching_max_k; prints it beside
+    the scores it ranks."""
+    from ao_tpu_torch.ops.knn import CHUNK_ELEMENTS, knn
+
+    batch = next(iter(trainer.train_loader))
+    o1, o2, m1, m2 = (batch[k].to(trainer.device) for k in (
+        "view1_origin_coord", "view2_origin_coord", "view1_mask", "view2_mask"))
+    k = trainer.model.matching_max_k
+    ms = cuda_ms(lambda: knn(o1, o2, k, m1, m2), reps=3, warmup=1)
+    B, N1, N2 = m1.shape + m2.shape[1:]
+    rec = dict(B=B, N1=N1, N2=N2, k=k, scores=B * N1 * N2,
+               chunked=B * N1 * N2 > CHUNK_ELEMENTS, ms=ms)
+    print(f"msc matching kNN: B={B} N1={N1} N2={N2} k={k}, {rec['scores']:.3e} "
+          f"scores (chunked {rec['chunked']}): {ms:.2f} ms; card {card}", flush=True)
+    del batch, o1, o2, m1, m2
+    return rec
+
+
+def heads_phase(device, seed, t0, card="", scannet_dir=None, s3dis_rooms=None,
+                steps=3):
+    """Phase 11: the SpUNet task heads' configs as written (f32, full width)
+    on the rooms of phases 7 and 5 (the ScanNet rooms written under
+    ``scannet_dir``, the S3DIS rooms given as ``s3dis_rooms``, written here
+    with normals from :func:`scannet_normals`, which the PointGroup S3DIS
+    config collects; made here where None). CAC on SpUNet at
+    its B=12 and whole-scene testing of the ScanNet room with its 10 views;
+    CAC on PT-v2m2 (the lovasz config) at B=12 with enable_checkpoint, one
+    step with its K1 and K2 calls held against their plain versions, then
+    ``steps`` counted; PointGroup ScanNet at B=12 through
+    ao_tpu_torch.tools.train_insseg, whose cut epoch ends with the
+    InsSegEvaluator on the val room (:func:`check_insseg`), and PointGroup
+    S3DIS at B=12; MSC-v1m1 through ao_tpu_torch.tools.train_pretrain at
+    the first of :data:`MSC_BATCHES` that fits (the config's 32 first; each
+    that does not prints the peak reached), then one MSC-v1m2 (CSC) step at
+    that batch. Every run: losses (CAC's four terms, PointGroup's three,
+    MSC's NCE, colour and normal) finite, matched pairs > 0 each MSC step,
+    parameters moved, the schedule's lr, step seconds, data wait, peak
+    memory. Returns (kernel rows, launches by path, train records)."""
+    from ao_tpu_torch.models import build_model
+    from ao_tpu_torch.tools.test import main as test_main
+    from ao_tpu_torch.utils import Config
+
+    t_phase = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="ao_chip_heads_")
+    if scannet_dir is None:
+        scannet_dir, _ = scannet_setup(
+            [make_scannet_room(s_, size) for s_, size in SCANNET_ROOMS],
+            make_scannet_room(*SCANNET_TEST_ROOM))
+    if s3dis_rooms is None:
+        s3dis_rooms = [make_room(s_, size) for s_, size in TRAIN_ROOMS]
+    s3dis_dir, _ = train_setup([dict(r, normal=scannet_normals(r["coord"]))
+                                for r in s3dis_rooms], os.path.join(work, "s3dis_data"))
+    sc_root = os.path.join(scannet_dir, "scannet")
+    n_sc = len(os.listdir(os.path.join(sc_root, "train")))
+    s3_root = os.path.join(s3dis_dir, "s3dis")
+    n_s3 = len(os.listdir(s3_root))
+    log(t0, f"heads phase data: {n_sc} ScanNet, {n_s3} S3DIS rooms")
+    launches, records = {}, {}
+
+    def opts(root, n, batch, n_steps, name):
+        return sparse_options(root, n, batch, n_steps, os.path.join(work, name), seed)
+
+    # CAC on SpUNet, then its scene test
+    launches["cac_train"], records["cac_train"] = sparse_train(
+        "scannet cac spunet train B=12 (as written)", CAC_CONFIG, device,
+        opts(sc_root, n_sc, 12, steps, "cac"), steps, (), onecycle_of, card)
+    check_terms(records["cac_train"], CAC_TERMS, "CAC")
+    rec = records["cac_train"]
+    if not any(n < rec["batch"] for n in rec["scenes"]):
+        raise RuntimeError("no CAC step was mixed by Mix3D")
+    print(f"scannet cac spunet train: terms "
+          f"{[{t: round(r[t], 5) for t in CAC_TERMS} for r in rec['history']]}",
+          flush=True)
+    cfg = Config.fromfile(CAC_CONFIG)
+    torch.manual_seed(seed)
+    weight = os.path.join(work, "cac.pt")
+    torch.save(build_model(dict(cfg.model)).state_dict(), weight)
+    result, launches["cac_test"] = _drive((), lambda: test_main([
+        "--config-file", CAC_CONFIG, "--device", str(device), "--options",
+        f"weight={weight}", f"save_path={os.path.join(work, 'cac_test')}",
+        f"data.test.data_root={sc_root}"]))
+    names = sorted(os.listdir(os.path.join(sc_root, "val")))
+    votes = np.load(os.path.join(work, "cac_test", "result",
+                                 names[0].replace(".pth", "_pred.npy")))
+    check_votes(votes, len(cfg.data.test.test_cfg.aug_transform), num_classes=20)
+    scene = result["scenes"][0]
+    print(f"scannet cac spunet test: {scene['fragments']} fragments in batches "
+          f"(B, N) {scene['batches']}; scene {scene['seconds']:.2f} s; votes "
+          f"{votes.shape}; mIoU {result['mIoU']:.4f} (random weights); card "
+          f"{card}", flush=True)
+    torch.cuda.empty_cache()
+    log(t0, "CAC SpUNet train and test done")
+
+    # CAC on PT-v2m2: its K1 / K2 calls held, then counted steps
+    graph = ("knn_window", "merge_topk")
+    ckpt = ["model.backbone.enable_checkpoint=True", *CAC_PTV2_IN]
+    torch.cuda.reset_peak_memory_stats()
+    rows = capture_step(CAC_PTV2_CONFIG, opts(sc_root, n_sc, 12, 1, "cac_ptv2_kernels")
+                        + ckpt, device, graph, t0, "CAC PT-v2m2 train step")
+    print(f"cac ptv2 captured step: peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; card {card}",
+          flush=True)
+    launches["cac_ptv2_train"], records["cac_ptv2_train"] = train_run(
+        "scannet cac ptv2 train B=12 (enable_checkpoint)", CAC_PTV2_CONFIG,
+        device, opts(sc_root, n_sc, 12, steps, "cac_ptv2") + ckpt, steps, graph,
+        onecycle_of, card)
+    check_terms(records["cac_ptv2_train"], CAC_TERMS, "CAC PT-v2m2")
+    log(t0, "CAC PT-v2m2 done")
+
+    # PointGroup: ScanNet with the evaluator, S3DIS
+    launches["pg_train"], records["pg_train"], trainer = sparse_train(
+        "scannet pointgroup train B=12 (as written)", PG_CONFIG, device,
+        opts(sc_root, n_sc, 12, steps, "pg") + [
+            "evaluate=True", f"data.val.data_root={sc_root}"], steps, (), poly_of,
+        card, entry="train_insseg", keep=True)
+    check_terms(records["pg_train"], ("seg_loss", "bias_l1_loss",
+                                      "bias_cosine_loss"), "PointGroup")
+    records["pg_eval"] = check_insseg(trainer, "scannet pointgroup", card)
+    del trainer
+    torch.cuda.empty_cache()
+    launches["pg_s3dis_train"], records["pg_s3dis_train"] = sparse_train(
+        "s3dis pointgroup train B=12 (as written)", PG_S3DIS_CONFIG, device,
+        opts(s3_root, n_s3, 12, steps, "pg_s3dis"), steps, (), poly_of, card,
+        entry="train_insseg")
+    log(t0, "PointGroup done")
+
+    # MSC at the largest batch that fits, then a CSC step. The MSC configs
+    # loop their scenes epoch // eval_epoch times an epoch, which the
+    # entry point sets over data.train.loop: the epoch sets it here
+    msc_terms = ("nce_loss", "color_loss", "normal_loss", "pairs")
+    n_msc = n_sc + len(os.listdir(os.path.join(sc_root, "val")))
+    eval_epoch = Config.fromfile(MSC_CONFIG).eval_epoch
+
+    def msc_opts(batch, n_steps, name):
+        return opts(sc_root, n_msc, batch, n_steps, name) + [
+            f"epoch={eval_epoch * -(-batch * n_steps // n_msc)}"]
+
+    for batch in MSC_BATCHES:
+        try:
+            launches["msc_train"], records["msc_train"], trainer = sparse_train(
+                f"scannet msc train B={batch}", MSC_CONFIG, device,
+                msc_opts(batch, steps, f"msc{batch}"), steps, (),
+                onecycle_of, card, entry="train_pretrain", keep=True)
+            break
+        except torch.cuda.OutOfMemoryError as e:
+            print(f"scannet msc train B={batch}: out of memory, peak reached "
+                  f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB ("
+                  f"{str(e).splitlines()[0][:160]}); card {card}", flush=True)
+            del e
+            import gc
+
+            gc.collect()
+            torch.cuda.empty_cache()
+    else:
+        raise RuntimeError(f"MSC fits none of the batches {MSC_BATCHES}")
+    records["msc_knn"] = time_msc_knn(trainer, card)
+    del trainer
+    torch.cuda.empty_cache()
+    rec = records["msc_train"]
+    check_terms(rec, msc_terms, "MSC")
+    if min(r["pairs"] for r in rec["history"]) <= 0:
+        raise RuntimeError("an MSC step matched no pair")
+    print(f"scannet msc train B={rec['batch']}: "
+          f"{[{t: round(r[t], 5) for t in msc_terms + ('pos_sim',)} for r in rec['history']]}",
+          flush=True)
+    launches["csc_train"], records["csc_train"] = sparse_train(
+        f"scannet msc-v1m2 (csc) train B={rec['batch']}", CSC_CONFIG, device,
+        msc_opts(rec["batch"], 1, "csc"), 1, (), onecycle_of, card,
+        entry="train_pretrain")
+    check_terms(records["csc_train"], msc_terms, "CSC")
+    if records["csc_train"]["history"][0]["pairs"] <= 0:
+        raise RuntimeError("the CSC step matched no pair")
+    log(t0, f"heads phase done in {time.perf_counter() - t_phase:.1f} s")
     return rows, launches, records
 
 
@@ -2540,6 +2822,7 @@ def run(device, seed, t0, room_size=(4.8, 4.0, 2.6), train_steps=5, card="",
     m1_rows, m1_launches, _ = ptv2m1_phase(device, seed, t0, rooms, card)
     sp_rows, sp_launches, _ = sparse_phase(device, seed, t0, card, sc_dir,
                                            kitti_dir, workdir)
+    hd_rows, hd_launches, _ = heads_phase(device, seed, t0, card, sc_dir, rooms)
 
     # one entry per kernel: its heaviest captured shape of the S3DIS paths
     kernels = []
@@ -2578,11 +2861,13 @@ def run(device, seed, t0, room_size=(4.8, 4.0, 2.6), train_steps=5, card="",
             bound_ms=row["bound_ms"], bound_by=row["bound_by"],
             library_ms=row["library_ms"],
             shape=f"{row['phase']}: {row['shape']}"))
-    # and one per kernel of the outdoor, PT-v2m1 and sparse paths, at its
-    # heaviest shape there, with the launches of those paths
-    for tag, phase_rows, paths in (("outdoor", out_rows, out_launches),
-                                   ("ptv2m1", m1_rows, m1_launches),
-                                   ("sparse", sp_rows, sp_launches)):
+    # and one per kernel of the outdoor, PT-v2m1, sparse and CAC paths, at
+    # its heaviest shape there, with the launches of those paths (of the
+    # heads' paths, CAC on PT-v2m2's: the others launch none)
+    for tag, phase_rows, paths in (
+            ("outdoor", out_rows, out_launches), ("ptv2m1", m1_rows, m1_launches),
+            ("sparse", sp_rows, sp_launches),
+            ("cac", hd_rows, {"cac_ptv2_train": hd_launches["cac_ptv2_train"]})):
         for name in sorted({r["name"] for r in phase_rows}):
             row = max((r for r in phase_rows if r["name"] == name),
                       key=lambda r: r["bound_ms"])
@@ -2628,14 +2913,18 @@ def main():
         help="run only phase 10 (the sparse-convolution configs, on rooms and "
              "scans made for it) with a traced ScanNet SpUNet step, and no "
              "kernel record")
+    parser.add_argument(
+        "--heads", action="store_true",
+        help="run only phase 11 (the CAC, PointGroup and MSC configs, on rooms "
+             "made for it), and no kernel record")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA card (torch.cuda.is_available() is "
               "False)", file=sys.stderr)
         return 2
-    # a healthy run takes about three minutes: a hang becomes a traceback
-    # and a non-zero exit well inside any caller's time limit
-    faulthandler.dump_traceback_later(480, exit=True)
+    # a healthy run takes about eight minutes: a hang becomes a traceback
+    # and a non-zero exit inside the caller's 1200 s
+    faulthandler.dump_traceback_later(1020, exit=True)
     t0 = time.perf_counter()
     from ao_tpu_torch.ops import _native
 
@@ -2660,8 +2949,10 @@ def main():
                       extra=args.outdoor_options)
     if args.sparse:
         sparse_phase(torch.device("cuda"), args.seed, t0, card, profile=True)
+    if args.heads:
+        heads_phase(torch.device("cuda"), args.seed, t0, card)
     if (args.scannet_batch is not None or args.outdoor_batch is not None
-            or args.sparse):
+            or args.sparse or args.heads):
         faulthandler.cancel_dump_traceback_later()
         print(f"card: {card}", flush=True)
         return 0

@@ -9,10 +9,12 @@ phase (ScanNetDataset, its transforms, Mix3D, OneCycle, the tester's
 10 views), outdoor phase (SemanticKITTIDataset, PointClip, a train step
 with enable_checkpoint, the nuScenes test with the submission writer) and
 PT-v2m1 phase run end to end (on the CPU, at a tiny size) with JAX and
-ao_tpu made unimportable; and every PT-v2 config, and every
-sparse-convolution config (building its model), loads through the port's
-Config without importing ao_tpu (the ScanNet200 configs' own import of
-ao_tpu's class names is served from the port's copy)."""
+ao_tpu made unimportable; and every PT-v2 config, every
+sparse-convolution config and every CAC, PointGroup and MSC config
+(building its model) loads through the port's Config without importing
+ao_tpu (the ScanNet200 configs' own import of ao_tpu's class names is
+served from the port's copy), the heads' entry points run, and the port's
+clustering library leaves native/ untouched."""
 
 import os
 import re
@@ -186,11 +188,88 @@ def test_every_sparse_config_loads_without_ao_tpu():
     assert types == ["MinkUNet34C", "SPVCNN", "SpUNet-v1m1", "SpUNet-v1m2"]
 
 
+_HEADS = r"""
+import glob, subprocess, sys, tempfile
+for name in ("jax", "ao_tpu", "flax", "optax"):
+    sys.modules[name] = None
+import numpy as np
+import chip_smoke
+from ao_tpu_torch.models import build_model
+from ao_tpu_torch.ops.cluster import bfs_cluster
+from ao_tpu_torch.utils import Config
+narrow = {
+    "SpUNet-v1m1": dict(channels=(8,) * 8, layers=(1,) * 8),
+    "PT-v2m2": dict(patch_embed_channels=16, patch_embed_groups=2,
+                    enc_channels=(16, 32, 32, 64), enc_groups=(2, 4, 4, 8),
+                    dec_channels=(16, 16, 32, 32), dec_groups=(2, 2, 4, 4),
+                    enc_depths=(1, 1, 1, 1)),
+}
+files = sorted(glob.glob("configs/*/semseg-cac-*.py")
+               + glob.glob("configs/*/insseg-pointgroup-*.py")
+               + glob.glob("configs/*/pretrain-msc-*.py"))
+types = set()
+for f in files:
+    cfg = Config.fromfile(f)
+    bb = cfg.model.backbone
+    types.add(cfg.model.type)
+    build_model(dict(cfg.model, backbone=dict(bb, **narrow[bb.type]),
+                     backbone_out_channels=16 if bb.type == "PT-v2m2" else 8))
+labels, n = bfs_cluster(np.random.default_rng(0).uniform(0, 3, (3000, 3)),
+                        np.zeros(3000, np.int32), radius=0.5, min_points=5)
+assert n > 0
+tiny = ["model.backbone.base_channels=8",
+        "model.backbone.channels=(8, 8, 16, 16, 16, 8, 8, 8)",
+        "model.backbone.layers=(1, 1, 1, 1, 1, 1, 1, 1)",
+        "model.backbone_out_channels=8", "pad_multiple=512", "max_points=4096"]
+rooms = [chip_smoke.make_scannet_room(s, (1.2, 1.0, 0.8), 0.05) for s in (1, 2, 3)]
+work, options = chip_smoke.scannet_setup(rooms[:2], rooms[2], batch_size=2,
+                                         max_steps=1, workers=0)
+cac = chip_smoke.run_train("cpu", options + tiny, chip_smoke.CAC_CONFIG)
+pg = chip_smoke.run_train("cpu", options + tiny + [
+    "evaluate=True", f"data.val.data_root={work}/scannet"], chip_smoke.PG_CONFIG,
+    "train_insseg")
+msc = chip_smoke.run_train("cpu", [f"save_path={tempfile.mkdtemp()}", "max_steps=1",
+                                   "num_worker=0", "enable_tensorboard=False"],
+                           "configs/synthetic/pretrain-msc-smoke.py", "train_pretrain")
+assert np.isfinite([cac.history[0]["kl_loss"], pg.history[0]["bias_l1_loss"],
+                    msc.history[0]["nce_loss"]]).all()
+assert pg.comm_info["insseg_result"]["scenes"] == 1
+assert not any(k == "jax" or k.startswith(("jax.", "ao_tpu.", "flax", "optax"))
+               for k, v in sys.modules.items() if v is not None)
+print("HEADS", len(files), " ".join(sorted(types)))
+"""
+
+
+def test_heads_configs_and_entry_points_without_ao_tpu():
+    """With jax and ao_tpu unimportable: every configs/*/semseg-cac-*,
+    insseg-pointgroup-* and pretrain-msc-* config (13, PointContrast's
+    among them: it builds its model; its ScanNetPairDataset is not ported
+    yet and no dataset is built here) loads through the port's Config and
+    builds its model at a narrow width; the port's bfs_cluster builds its
+    library and clusters; a step of the CAC config through the train entry
+    point, of the PointGroup config through train_insseg (its evaluator
+    scoring the val room) and of the synthetic MSC config through
+    train_pretrain run at tiny widths. After it, git sees no change under
+    native/ (the port never builds into the JAX package's library)."""
+    env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="1")
+    res = subprocess.run(
+        [sys.executable, "-c", _HEADS], cwd=ROOT, env=env, capture_output=True,
+        text=True, timeout=240,
+    )
+    assert res.returncode == 0, res.stderr[-4000:]
+    n, *types = res.stdout.split("HEADS")[1].split()
+    assert int(n) == 13
+    assert types == ["CAC-v1m1", "MSC-v1m1", "MSC-v1m2", "PG-v1m1"]
+    status = subprocess.run(["git", "status", "--porcelain", "native/"], cwd=ROOT,
+                            capture_output=True, text=True, timeout=60)
+    assert status.returncode == 0 and status.stdout == ""
+
+
 def test_port_sources_name_no_jax_no_ao_tpu_no_cpp_extension():
     files = [os.path.join(ROOT, "chip_smoke.py")]
     for d, _, names in os.walk(os.path.join(ROOT, "ao_tpu_torch")):
         files += [os.path.join(d, n) for n in names
-                  if n.endswith((".py", ".cu", ".cuh"))]
+                  if n.endswith((".py", ".cu", ".cuh", ".cpp"))]
     bad = re.compile(r"cpp_extension|import jax|from jax|ao_tpu\.|import ao_tpu\b"
                      r"|import flax|from flax|import optax|from optax"
                      r"|torch/extension\.h|import triton")
@@ -214,7 +293,14 @@ def test_port_sources_name_no_jax_no_ao_tpu_no_cpp_extension():
                 "ops/sparse_conv.py", "models/sparse_unet/spunet.py",
                 "models/sparse_unet/mink_spvcnn.py",
                 "models/sparse_unet/convert.py", "datasets/misc_datasets.py",
-                "engines/hooks/misc.py", "models/default.py"):
+                "engines/hooks/misc.py", "models/default.py",
+                "models/context_aware_classifier/cac.py",
+                "models/point_group/point_group.py",
+                "models/masked_scene_contrast/msc.py", "ops/cluster.py",
+                "csrc/host/cluster.cpp", "engines/insseg_eval.py",
+                "engines/train_insseg.py", "engines/train_pretrain.py",
+                "tools/train_insseg.py", "tools/train_pretrain.py",
+                "datasets/synthetic.py", "ops/knn.py"):
         assert f"ao_tpu_torch/{mod}" in names
     # the one place that names an ao_tpu module: the module name that the
     # config loader serves from the port's copy (a sys.modules key, never
