@@ -114,6 +114,8 @@ class DefaultDataset:
         data_dict = self.get_data(idx)
         segment = data_dict.pop("segment")
         result_dict = dict(segment=segment, name=self.get_data_name(idx))
+        if "category" in data_dict:  # part segmentation: the shape class
+            result_dict["category"] = data_dict["category"]
         data_dict = self.transform(data_dict)
 
         fragment_list = []

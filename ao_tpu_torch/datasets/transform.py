@@ -1,10 +1,5 @@
-"""Host-side point-cloud transforms of the S3DIS, ScanNet, SemanticKITTI
-and nuScenes train and test paths.
-
-Port of the transforms of ao_tpu/datasets/transform.py that the PT-v2,
-sparse, CAC, PointGroup and MSC configs of those datasets name (the last
-two add InstanceParser, ContrastiveViewsGenerator and RandomColorJitter),
-with the same semantics (FNV-1a voxel
+"""Host-side point-cloud transforms (port of the whole of
+ao_tpu/datasets/transform.py), with the same semantics (FNV-1a voxel
 hashing, train and test GridSample modes, random sphere crops, dropout,
 rotations, elastic distortion, the LiDAR range clip; ScanNet's
 limited-annotation
@@ -126,10 +121,36 @@ class ToTensor:
 
 
 @TRANSFORMS.register_module()
+class ToArray(ToTensor):
+    pass
+
+
+@TRANSFORMS.register_module()
 class NormalizeColor:
     def __call__(self, data_dict):
         if "color" in data_dict:
             data_dict["color"] = data_dict["color"] / 127.5 - 1
+        return data_dict
+
+
+@TRANSFORMS.register_module()
+class NormalizeCoord:
+    """Centre the cloud on its mean and scale it into the unit sphere."""
+
+    def __call__(self, data_dict):
+        if "coord" in data_dict:
+            coord = data_dict["coord"] - np.mean(data_dict["coord"], axis=0)
+            m = np.max(np.sqrt(np.sum(coord**2, axis=1)))
+            data_dict["coord"] = coord / m
+        return data_dict
+
+
+@TRANSFORMS.register_module()
+class PositiveShift:
+    def __call__(self, data_dict):
+        if "coord" in data_dict:
+            data_dict["coord"] = data_dict["coord"] - np.min(
+                data_dict["coord"], axis=0)
         return data_dict
 
 
@@ -150,6 +171,24 @@ class CenterShift:
                 ]
             )
             data_dict["coord"] = data_dict["coord"] - shift
+        return data_dict
+
+
+@TRANSFORMS.register_module()
+class RandomShift:
+    """Shift the cloud by one uniform draw per axis from ``shift``'s
+    (lo, hi) ranges."""
+
+    def __init__(self, shift=((-0.2, 0.2), (-0.2, 0.2), (0, 0)),
+                 generator: Optional[torch.Generator] = None):
+        self.shift = shift
+        self.generator = generator
+
+    def __call__(self, data_dict):
+        if "coord" in data_dict:
+            offsets = np.array([_uniform(lo, hi, 1, self.generator)[0]
+                                for lo, hi in self.shift])
+            data_dict["coord"] = data_dict["coord"] + offsets
         return data_dict
 
 
@@ -201,6 +240,29 @@ class RandomJitter:
             jitter = np.clip(self.sigma * _normal((n, 3), self.generator),
                              -self.clip, self.clip)
             data_dict["coord"] = data_dict["coord"] + jitter
+        return data_dict
+
+
+@TRANSFORMS.register_module()
+class ClipGaussianJitter:
+    """Jitter by ``scalar`` x a standard normal clipped to its 1.96
+    quantile; the jitter is kept under ``jitter`` with ``store_jitter``."""
+
+    def __init__(self, scalar=0.02, store_jitter=False,
+                 generator: Optional[torch.Generator] = None):
+        self.scalar = scalar
+        self.quantile = 1.96
+        self.store_jitter = store_jitter
+        self.generator = generator
+
+    def __call__(self, data_dict):
+        if "coord" in data_dict:
+            n = data_dict["coord"].shape[0]
+            jitter = self.scalar * np.clip(
+                _normal((n, 3), self.generator) / self.quantile, -1, 1)
+            data_dict["coord"] = data_dict["coord"] + jitter
+            if self.store_jitter:
+                data_dict["jitter"] = jitter
         return data_dict
 
 
@@ -408,12 +470,18 @@ class ElasticDistortion:
 @TRANSFORMS.register_module()
 class SphereCrop:
     """Keep the ``point_max`` points nearest a random point (mode "random")
-    or the middle point (mode "center") when the cloud has more."""
+    or the middle point (mode "center") when the cloud has more. Mode
+    "all" returns a list of crops that together cover every point
+    (reference transform.py:899-998): each centred on the point of least
+    accumulated weight (random weights of 1e-3 at most to start), whose
+    members then gain (1 - d2 / max d2)^2; every crop carries ``index``
+    (the original rows) and ``weight`` (its d2); a cloud within
+    ``point_max`` is one crop of zero weights."""
 
     def __init__(self, point_max=80000, sample_rate=None, mode="random",
                  generator: Optional[torch.Generator] = None):
-        if mode not in ("random", "center"):
-            raise ValueError(f"SphereCrop: mode {mode!r} is not ported")
+        if mode not in ("random", "center", "all"):
+            raise ValueError(f"SphereCrop: unknown mode {mode!r}")
         self.point_max = point_max
         self.sample_rate = sample_rate
         self.mode = mode
@@ -423,6 +491,8 @@ class SphereCrop:
         n = data_dict["coord"].shape[0]
         point_max = (int(self.sample_rate * n) if self.sample_rate is not None
                      else self.point_max)
+        if self.mode == "all":
+            return self._all(data_dict, n, point_max)
         if n > point_max:
             if self.mode == "random":
                 i = int(torch.randint(0, n, (1,), generator=self.generator))
@@ -433,6 +503,30 @@ class SphereCrop:
                 np.sum((data_dict["coord"] - center) ** 2, 1))[:point_max]
             index_points(data_dict, idx_crop)
         return data_dict
+
+
+    def _all(self, data_dict, n, point_max):
+        if "index" not in data_dict:
+            data_dict["index"] = np.arange(n)
+        if n <= point_max:
+            part = dict(data_dict)
+            part["weight"] = np.zeros(n)
+            return [part]
+        coord = data_dict["coord"]
+        coord_p = _uniform(0.0, 1.0, n, self.generator) * 1e-3
+        covered = np.array([])
+        parts = []
+        while covered.size != data_dict["index"].shape[0]:
+            dist2 = np.sum((coord - coord[np.argmin(coord_p)]) ** 2, 1)
+            idx_crop = np.argsort(dist2)[:point_max]
+            part = {k: data_dict[k][idx_crop] for k in POINT_KEYS
+                    if isinstance(data_dict.get(k), np.ndarray)
+                    and data_dict[k].shape[:1] == (n,)}
+            part["weight"] = dist2[idx_crop]
+            parts.append(part)
+            coord_p[idx_crop] += np.square(1 - part["weight"] / np.max(part["weight"]))
+            covered = np.unique(np.concatenate((covered, part["index"])))
+        return parts
 
 
 @TRANSFORMS.register_module()
@@ -625,6 +719,75 @@ class RandomColorJitter:
                          * 255.0).astype(color.dtype)
             data_dict["color"] = color
         return data_dict
+
+
+@TRANSFORMS.register_module()
+class RandomColorGrayScale:
+    def __init__(self, p, generator: Optional[torch.Generator] = None):
+        self.p = p
+        self.generator = generator
+
+    def __call__(self, data_dict):
+        if "color" in data_dict and _uniform(0.0, 1.0, 1, self.generator)[0] < self.p:
+            data_dict["color"] = rgb_to_grayscale(data_dict["color"], 3)
+        return data_dict
+
+
+@TRANSFORMS.register_module()
+class HueSaturationTranslation:
+    """One hue offset in [-hue_max, hue_max] and one saturation ratio in
+    [1 - saturation_max, 1 + saturation_max] per scene, in HSV."""
+
+    def __init__(self, hue_max=0.5, saturation_max=0.2,
+                 generator: Optional[torch.Generator] = None):
+        self.hue_max = hue_max
+        self.saturation_max = saturation_max
+        self.generator = generator
+
+    def __call__(self, data_dict):
+        if "color" in data_dict:
+            h, s, v = _rgb_to_hsv(data_dict["color"][:, :3] / 255.0)
+            dh = _uniform(-self.hue_max, self.hue_max, 1, self.generator)[0]
+            ds = _uniform(-self.saturation_max, self.saturation_max, 1,
+                          self.generator)[0]
+            h = np.mod(h + dh, 1.0)
+            s = np.clip(s * (1 + ds), 0.0, 1.0)
+            data_dict["color"][:, :3] = np.clip(_hsv_to_rgb(h, s, v) * 255.0, 0, 255)
+        return data_dict
+
+
+@TRANSFORMS.register_module()
+class RandomColorDrop:
+    def __init__(self, p=0.2, color_augment=0.0,
+                 generator: Optional[torch.Generator] = None):
+        self.p = p
+        self.color_augment = color_augment
+        self.generator = generator
+
+    def __call__(self, data_dict):
+        if "color" in data_dict and _uniform(0.0, 1.0, 1, self.generator)[0] < self.p:
+            data_dict["color"] = data_dict["color"] * self.color_augment
+        return data_dict
+
+
+@TRANSFORMS.register_module()
+class ShufflePoint:
+    def __init__(self, generator: Optional[torch.Generator] = None):
+        self.generator = generator
+
+    def __call__(self, data_dict):
+        n = data_dict["coord"].shape[0]
+        idx = torch.randperm(n, generator=self.generator).numpy()
+        return index_points(data_dict, idx)
+
+
+@TRANSFORMS.register_module()
+class CropBoundary:
+    """Drop the points of classes 0 and 1 (S3DIS' ceiling and floor)."""
+
+    def __call__(self, data_dict):
+        segment = data_dict["segment"].flatten()
+        return index_points(data_dict, (segment != 0) & (segment != 1))
 
 
 @TRANSFORMS.register_module()

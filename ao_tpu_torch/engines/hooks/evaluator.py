@@ -4,6 +4,9 @@ reference: pointcept/engines/hooks/evaluator.py:105-201).
 ``SemSegEvaluator`` sums the per-class intersection / union / target
 histograms of ``trainer.eval_batch`` over the validation loader and
 reports mIoU, mAcc and allAcc; mIoU becomes the trainer's current metric.
+``ClsEvaluator`` (reference :21-102) sums the same histograms of a
+classifier's batches (one prediction a scene) and reports mAcc and
+allAcc; allAcc becomes the current metric.
 """
 
 from __future__ import annotations
@@ -75,3 +78,49 @@ class SemSegEvaluator(HookBase):
     def after_train(self):
         self.trainer.logger.info(
             f"Best mIoU: {self.trainer.best_metric_value:.4f}")
+
+
+@HOOKS.register_module()
+class ClsEvaluator(HookBase):
+    def after_epoch(self):
+        trainer = self.trainer
+        if trainer.cfg.get("evaluate", True) and trainer.val_loader is not None:
+            self.eval()
+
+    def eval(self):
+        trainer = self.trainer
+        trainer.logger.info(">>>>>>>>>>>>>>>> Start Evaluation >>>>>>>>>>>>>>>>")
+        t0 = time.perf_counter()
+        K = trainer.cfg.data.num_classes
+        inter_sum = np.zeros(K)
+        target_sum = np.zeros(K)
+        loss_sum, n_batches = 0.0, 0
+        for batch in trainer.val_loader:
+            loss, inter, _, target = (
+                np.asarray(x) for x in trainer.eval_batch(batch))
+            inter_sum += inter
+            target_sum += target
+            loss_sum += float(loss)
+            n_batches += 1
+        acc_class = inter_sum / (target_sum + 1e-10)
+        m_acc = float(np.mean(acc_class))
+        all_acc = float(inter_sum.sum() / (target_sum.sum() + 1e-10))
+        seconds = time.perf_counter() - t0
+        trainer.logger.info(f"Val result: mAcc/allAcc {m_acc:.4f}/{all_acc:.4f}.")
+        trainer.logger.info(f"Evaluation of {n_batches} batches: {seconds:.2f} s")
+        current_epoch = trainer.epoch + 1
+        loss_avg = loss_sum / max(n_batches, 1)
+        if trainer.writer is not None:
+            trainer.writer.add_scalar("val/loss", loss_avg, current_epoch)
+            trainer.writer.add_scalar("val/mAcc", m_acc, current_epoch)
+            trainer.writer.add_scalar("val/allAcc", all_acc, current_epoch)
+        trainer.logger.info("<<<<<<<<<<<<<<<<< End Evaluation <<<<<<<<<<<<<<<<<")
+        trainer.comm_info["current_metric_value"] = all_acc
+        trainer.comm_info["current_metric_name"] = "allAcc"
+        trainer.comm_info["val_result"] = dict(
+            epoch=current_epoch, mAcc=m_acc, allAcc=all_acc, loss=loss_avg,
+            batches=n_batches, seconds=seconds)
+
+    def after_train(self):
+        self.trainer.logger.info(
+            f"Best allAcc: {self.trainer.best_metric_value:.4f}")

@@ -1,5 +1,7 @@
-"""Whole-scene semantic-segmentation testing (port of the SemSegTester of
+"""Testers (port of the SemSegTester, ClsTester and PartSegTester of
 ao_tpu/engines/test.py).
+
+Semantic segmentation:
 
 Each scene is expanded by the dataset into TTA views and, per view, into
 complementary GridSample fragments. Fragments are batched ``fb`` at a
@@ -10,6 +12,15 @@ host and the argmax is scored against the full-resolution labels.
 Per-scene votes are cached as ``<name>_pred.npy`` for resume. With
 ``submit=True`` in the config each scene's prediction is also written in
 its benchmark's submission format (:meth:`SemSegTester.save_submission`).
+
+Classification (``ClsTester``): one padded forward a sample, its argmax
+against the category; mAcc and allAcc. Part segmentation
+(``PartSegTester``): each shape's views (the dataset's test-mode
+fragments, or the sample itself) forwarded with the shape's category, the
+softmax averaged per point over the views; per shape the mean part IoU of
+its category's parts (a part absent from both labels and prediction counts
+1), averaged per shape (ins.mIoU) and per category (cat.mIoU, categories
+without a shape counting 0, as in the reference).
 """
 
 from __future__ import annotations
@@ -67,11 +78,17 @@ class TesterBase:
         self.save_path = cfg.save_path
 
     @torch.inference_mode()
-    def forward(self, coord, feat, mask, discrete_coord=None):
+    def forward(self, coord, feat, mask, discrete_coord=None, category=None):
         """The model's logits (its ``seg_logits`` where it returns a dict,
-        as CAC does)."""
-        out = self.model(coord, feat, mask, discrete_coord=discrete_coord)
+        as CAC does); ``category`` goes to a part-segmentation model."""
+        kw = {} if category is None else dict(category=category)
+        out = self.model(coord, feat, mask, discrete_coord=discrete_coord, **kw)
         return out["seg_logits"] if isinstance(out, dict) else out
+
+    def inputs(self, batch):
+        """A collated batch's model inputs on the tester's device."""
+        return {k: batch[k].to(self.device)
+                for k in ("coord", "feat", "mask", "discrete_coord") if k in batch}
 
     @staticmethod
     def batches(frags, pad_multiple, fb=8):
@@ -91,10 +108,7 @@ class TesterBase:
         pred = np.zeros((n, num_classes), np.float32)
         shapes = []
         for group, batch in self.batches(frags, pad_multiple, fb):
-            logits = self.forward(**{
-                k: batch[k].to(self.device)
-                for k in ("coord", "feat", "mask", "discrete_coord")
-                if k in batch})
+            logits = self.forward(**self.inputs(batch))
             probs = torch.softmax(logits.float(), dim=-1).cpu().numpy()
             shapes.append(tuple(batch["mask"].shape))
             for b, f in enumerate(group):
@@ -213,3 +227,79 @@ class SemSegTester(TesterBase):
             os.makedirs(sub_dir, exist_ok=True)
             (pred + 1).astype(np.uint8).tofile(
                 os.path.join(sub_dir, f"{name}_lidarseg.bin"))
+
+
+@TEST.register_module()
+class ClsTester(TesterBase):
+    def __call__(self):
+        cfg = self.cfg
+        self.setup(cfg)
+        dataset = build_dataset(dict(cfg.data.test))
+        K = cfg.data.num_classes
+        pad_multiple = cfg.get("pad_multiple", 1024)
+        correct, total = 0, 0
+        inter_sum = np.zeros(K)
+        target_sum = np.zeros(K)
+        for idx in range(len(dataset)):
+            sample = dataset[idx]
+            category = int(np.asarray(sample["category"]).reshape(-1)[0])
+            batch = collate_fn([sample], pad_multiple=pad_multiple)
+            pred = int(self.forward(**self.inputs(batch))[0].argmax())
+            correct += int(pred == category)
+            total += 1
+            inter_sum[category] += pred == category
+            target_sum[category] += 1
+            if self.verbose and idx % 50 == 0:
+                self.logger.info(f"Test: [{idx + 1}/{len(dataset)}] acc "
+                                 f"{correct / total:.4f}")
+        all_acc = correct / max(total, 1)
+        m_acc = float(np.mean(inter_sum / np.maximum(target_sum, 1)))
+        self.logger.info(f"Test result: mAcc {m_acc:.4f} allAcc {all_acc:.4f}")
+        return dict(allAcc=all_acc, mAcc=m_acc)
+
+
+@TEST.register_module()
+class PartSegTester(TesterBase):
+    def __call__(self):
+        cfg = self.cfg
+        self.setup(cfg)
+        dataset = build_dataset(dict(cfg.data.test))
+        K = cfg.data.num_classes
+        pad_multiple = cfg.get("pad_multiple", 1024)
+        categories = dataset.categories
+        iou_category = np.zeros(len(categories))
+        iou_count = np.zeros(len(categories))
+        for idx in range(len(dataset)):
+            sample = dataset[idx]
+            label = np.asarray(sample["segment"]).reshape(-1)
+            cat_idx = int(np.asarray(sample["category"]).reshape(-1)[0])
+            category = torch.tensor([cat_idx], device=self.device)
+            views = sample.get("fragment_list") or [sample]
+            probs = np.zeros((label.size, K), np.float64)
+            counts = np.zeros((label.size, 1), np.float64)
+            for view in views:
+                batch = collate_fn([view], pad_multiple=pad_multiple)
+                logits = self.forward(**self.inputs(batch), category=category)
+                m = batch["mask"][0].numpy()
+                p = torch.softmax(logits[0].float(), dim=-1).cpu().numpy()[m]
+                vidx = np.asarray(view.get("index", np.arange(label.size))).reshape(-1)
+                np.add.at(probs, vidx, p[: vidx.size])
+                np.add.at(counts, vidx, 1.0)
+            pred = (probs / np.maximum(counts, 1.0)).argmax(-1)
+            parts = dataset.category2part[categories[cat_idx]]
+            parts_iou = np.zeros(len(parts))
+            for j, part in enumerate(parts):
+                gt_m, pr_m = label == part, pred == part
+                if not gt_m.any() and not pr_m.any():
+                    parts_iou[j] = 1.0
+                else:
+                    parts_iou[j] = np.sum(gt_m & pr_m) / max(np.sum(gt_m | pr_m), 1)
+            iou_category[cat_idx] += parts_iou.mean()
+            iou_count[cat_idx] += 1
+            if self.verbose and idx % 50 == 0:
+                self.logger.info(f"Test: [{idx + 1}/{len(dataset)}]")
+        ins_miou = iou_category.sum() / (iou_count.sum() + 1e-10)
+        cat_miou = np.mean(iou_category / (iou_count + 1e-10))
+        self.logger.info(
+            f"Test result: ins.mIoU/cat.mIoU {ins_miou:.4f}/{cat_miou:.4f}")
+        return dict(ins_mIoU=float(ins_miou), cat_mIoU=float(cat_miou))

@@ -206,11 +206,17 @@ class Trainer(TrainerBase):
 
     def _to_device(self, batch):
         """(the model's inputs: coord, feat, mask and, when the batch carries
-        it, discrete_coord; segment), on the device."""
+        it, discrete_coord; the target), on the device. The target is the
+        batch's ``segment`` or, where it has none (classification), its
+        ``category``; a batch with both (part segmentation) also hands its
+        ``category`` to a model that takes it (``takes_category``)."""
+        keys = ["coord", "feat", "mask", "discrete_coord"]
+        if "segment" in batch and getattr(self.model, "takes_category", False):
+            keys.append("category")
         inputs = {k: batch[k].to(self.device, non_blocking=True)
-                  for k in ("coord", "feat", "mask", "discrete_coord")
-                  if k in batch}
-        return inputs, batch["segment"].to(self.device, non_blocking=True)
+                  for k in keys if k in batch}
+        target = batch["segment"] if "segment" in batch else batch["category"]
+        return inputs, target.to(self.device, non_blocking=True)
 
     def train_step(self, batch) -> Dict[str, torch.Tensor]:
         """One optimizer step on a collated batch; returns the metrics as
@@ -224,14 +230,16 @@ class Trainer(TrainerBase):
         return "segment" in inspect.signature(self.model.forward).parameters
 
     def _forward(self, inputs, segment):
-        """(loss, logits (B, N, C), the loss's terms) of the model on one
-        batch. A model that owns its loss (``forward`` takes ``segment``)
-        returns a dict: its ``loss``, its ``seg_logits`` and every
-        ``*_loss`` term; otherwise the criteria score the logits."""
+        """(loss, logits (B, N, C), or (B, C) for a classifier, the loss's
+        terms) of the model on one batch. A model that owns its loss
+        (``forward`` takes ``segment``) returns a dict: its ``loss``, its
+        ``seg_logits`` and every ``*_loss`` term; otherwise the criteria
+        score the logits, over the valid points where they are per point."""
         segment = segment.long()
         if not self._takes_segment:
             logits = self.model(**inputs)
-            return self.criteria(logits, segment, inputs["mask"]), logits, {}
+            mask = inputs["mask"] if logits.dim() == 3 else None
+            return self.criteria(logits, segment, mask), logits, {}
         out = self.model(**inputs, segment=segment)
         terms = {k: v.detach() for k, v in out.items() if k.endswith("_loss")}
         return out["loss"], out["seg_logits"], terms
@@ -304,7 +312,8 @@ class Trainer(TrainerBase):
     def eval_batch(self, batch):
         """(loss, intersection, union, target) of one validation batch: the
         loss over its valid points and the per-class IoU histograms (numpy)
-        of its predictions. When the batch carries ``origin_coord`` /
+        of its predictions (of a classifier: one prediction a scene against
+        its category). When the batch carries ``origin_coord`` /
         ``origin_segment`` (under ``extras``), each scene's predictions on
         its grid-sampled points are carried to its full-resolution points
         by their exact nearest sampled point and scored there."""
@@ -317,6 +326,9 @@ class Trainer(TrainerBase):
         K = self.cfg.data.num_classes
         ignore = self.cfg.data.get("ignore_index", -1)
         extras = batch.get("extras", {})
+        if logits.dim() == 2:
+            hist = intersection_and_union_torch(pred, segment, K, ignore)
+            return (loss, *(h.cpu().numpy() for h in hist))
         if "origin_coord" not in extras:
             target = torch.where(mask, segment.long(), ignore)
             hist = intersection_and_union_torch(pred, target, K, ignore)

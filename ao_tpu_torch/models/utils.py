@@ -103,3 +103,24 @@ def dense(layer: nn.Linear, x: torch.Tensor,
     dt = dtype or torch.float32
     b = None if layer.bias is None else layer.bias.to(dt)
     return nn.functional.linear(x.to(dt), layer.weight.to(dt), b)
+
+
+class ClassifierHead(nn.Module):
+    """Linear(256)-BN-ReLU-Dropout(0.5), Linear(128)-BN-ReLU-Dropout(0.5),
+    Linear(num_classes) over a (B, C) embedding (the PT-v1 classifier's
+    head and DefaultClassifier's)."""
+
+    def __init__(self, in_features: int, num_classes: int, dropout: float = 0.5):
+        super().__init__()
+        self.cls_fc1 = nn.Linear(in_features, 256)
+        self.cls_bn1 = PointBatchNorm(256)
+        self.cls_drop1 = Dropout(dropout)
+        self.cls_fc2 = nn.Linear(256, 128)
+        self.cls_bn2 = PointBatchNorm(128)
+        self.cls_drop2 = Dropout(dropout)
+        self.cls_out = nn.Linear(128, num_classes)
+
+    def forward(self, x):
+        x = self.cls_drop1(torch.relu(self.cls_bn1(self.cls_fc1(x))))
+        x = self.cls_drop2(torch.relu(self.cls_bn2(self.cls_fc2(x))))
+        return self.cls_out(x)

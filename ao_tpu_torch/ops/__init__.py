@@ -1,4 +1,4 @@
-from .knn import knn
+from .knn import knn, knn_query
 from .knn_spatial import (
     knn_cross_spatial,
     knn_self_presorted,
@@ -11,3 +11,4 @@ from .grouping import grouping, grouping_with_rel_coord
 from .grid_pool import grid_pool, unpool_map
 from .interpolation import interpolation
 from .gva import gva_eval, pack_coords
+from .sampling import farthest_point_sampling

@@ -67,6 +67,8 @@ _SIGNATURES = {
     "gva_eval_blocks_per_sm": [_I, ctypes.POINTER(_I)],
     "gva_stats_blocks_per_sm": [_I, ctypes.POINTER(_I)],
     "gva_bwd_blocks_per_sm": [_I, ctypes.POINTER(_I)],
+    # xyz planes, mask, scratch, out, B, N, m, start_idx, stream
+    "fps_launch": [_P] * 4 + [_I] * 4 + [_P],
 }
 
 _lib = None

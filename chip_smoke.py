@@ -9,8 +9,9 @@ then of configs/scannet/semseg-pt-v2m2-0-base.py and
 configs/semantic_kitti/semseg-pt-v2m2-0-base.py, PT-v2m1 at that of
 configs/s3dis/semseg-pt-v2m1-0-base.py, the sparse-convolution U-Nets
 at those of their ScanNet SpUNet, S3DIS MinkUNet34C and SemanticKITTI
-SPVCNN configs, and the SpUNet task heads (CAC, PointGroup, MSC) at those
-of their ScanNet and S3DIS configs.
+SPVCNN configs, the SpUNet task heads (CAC, PointGroup, MSC) at those
+of their ScanNet and S3DIS configs, and PT-v1 (Seg50, Cls26, PartSeg50)
+at those of its S3DIS and ModelNet40 configs.
 
 1. Prints the card (nvidia-smi name and power limit), the torch and CUDA
    versions, and builds the kernels (one nvcc process per csrc/*.cu
@@ -166,14 +167,37 @@ of their ScanNet and S3DIS configs.
    then one step of pretrain-msc-v1m2-0-spunet-csc.py at that batch. Each run prints its step seconds, data wait and peak
    memory. ``--heads`` runs this phase alone, on data made for it.
 
+12. PT-v1 phase: FPS (csrc/fps.cu; no TPU kernel: ao_tpu runs it as an XLA
+   loop) held against its plain version, indices equal, on a padded
+   batch and on a lattice with exact ties, then at Seg50's four stages
+   of the S3DIS train batch (81920 -> 20480 -> 5120 -> 1280 -> 320).
+   configs/s3dis/semseg-pt-v1-0-base.py as written (Seg50, f32, AdamW,
+   MultiStepLR) on phase 5's rooms: one train step at the first of B =
+   12, 8, 6, 4, 3 that fits (the peak reached printed for each that does
+   not) with its K1 and K2 calls (the unpooling's 2-probe k=3 search at
+   Nq = 81920, 20480, 5120) and its FPS calls captured and held, 3
+   counted steps at that batch (losses finite, parameters moved,
+   MultiStepLR's lr, launches per step, step seconds, data wait, peak
+   memory), one more timed for the share of its exact kNN (chunked above
+   2^28 scores), and whole-scene testing of the slice phase's room with
+   the config's views. configs/modelnet40/cls-ptv1-0-base.py as written
+   (Cls26, B=32 x 1024, SGD nesterov) on synthetic shapes in ModelNet40's
+   layout (40 classes, 10000 points with normals a file, one train and one
+   test shape a class): 3 steps whose cut epoch ends with the
+   ClsEvaluator, then its ClsTester; cls-spunet-v1m1-0-base.py 3 steps at
+   its B=16 with the level-0 sites a shape printed (its transforms have
+   no GridSample). PartSeg50 with the PartSegTester on two shapes in
+   ShapeNetPart's layout (a config built here: two scaled views).
+   ``--ptv1`` runs this phase alone, on data made for it.
+
 Each main path (the slice phase, the train phase, the REAL run, the
-ScanNet test and train runs, every train and test run of phases 8, 9, 10
-and 11) runs with every kernel's launch count set to 0 just before it and
-read just after, and fails if one of its kernels never launched. The last
+ScanNet test and train runs, every train and test run of phases 8-12)
+runs with every kernel's launch count set to 0 just before it and read
+just after, and fails if one of its kernels never launched. The last
 three lines are the card, the kernels' JSON record (one entry per kernel,
 then one per new instance of the ScanNet config, then one per kernel of
-the outdoor, PT-v2m1, sparse and CAC paths at its heaviest shape there)
-and {"ok": true, "device": {...}}.
+the outdoor, PT-v2m1, sparse, CAC and PT-v1 paths at its heaviest shape
+there, then FPS) and {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -227,10 +251,15 @@ KERNEL_INFO = {
         replaces="ao_tpu/ops/pallas/gva_slab.py:294 + "
                  "ao_tpu/ops/pallas/gva_fused.py:292 + "
                  "ao_tpu/ops/pallas/gva_fused.py:346"),
+    # no TPU kernel: ao_tpu's FPS is an XLA lax.fori_loop
+    "fps": dict(
+        route="cuda", source="ao_tpu_torch/csrc/fps.cu",
+        replaces="ao_tpu/ops/sampling.py:22 (XLA fori_loop, no TPU kernel)"),
 }
-# the kernels of each main path (all six run in a train step)
+# the kernels of each main path (all six of PT-v2 run in a train step)
 SLICE_KERNELS = ("knn_window", "merge_topk", "gva_eval")
-TRAIN_KERNELS = tuple(KERNEL_INFO)
+TRAIN_KERNELS = ("knn_window", "merge_topk", "gva_eval", "gva_pos",
+                 "gva_stats", "gva_bwd")
 # (make_room seed, room size in m) of the train phase's three rooms: over
 # 100k voxels of 0.04 m each, so that after the train transforms
 # (RandomScale down to 0.9) SphereCrop keeps 80000 points and the batch
@@ -378,10 +407,13 @@ def _clone(a):
 class Capture:
     """Wraps the kernel wrappers so that the inputs of the first call of
     each (kernel, shape) are kept for the comparison with the plain
-    versions."""
+    versions: of every shape, or of the first ``limit[name]`` shapes of a
+    kernel named there. Launches count as they would unwrapped, so a
+    counted run may be captured too."""
 
-    def __init__(self):
+    def __init__(self, limit=None):
         self.calls = {}
+        self.limit = dict(limit or {})
         self._undo = []
 
     def wrap(self, module, attr, name):
@@ -390,15 +422,39 @@ class Capture:
         def rec(*args):
             key = (name,) + tuple(_shape_key(a) for a in args
                                   if not isinstance(a, dict))
-            if key not in self.calls:
+            seen = sum(c[0] == name for c in self.calls.values())
+            if key not in self.calls and seen < self.limit.get(name, seen + 1):
                 self.calls[key] = (name, fn, [_clone(a) for a in args])
-            return fn(*args)
+            out = fn(*args)
+            # a wrapper counts its launches on its module's attribute, which
+            # is this function while wrapped: they move to the wrapper's own
+            # count (which _wrappers reads through __wrapped__)
+            fn.launches += rec.launches
+            rec.launches = 0
+            return out
 
-        # the wrapper counts its launches on the module attribute, which
-        # is this function while wrapped (these counts are discarded)
         rec.launches = 0
+        rec.__wrapped__ = fn
         setattr(module, attr, rec)
         self._undo.append((module, attr, fn))
+
+    def wrap_path(self, names):
+        """Wrap the wrappers of ``names`` (kernel names of
+        :data:`KERNEL_INFO`) where the paths call them."""
+        from ao_tpu_torch.models.point_transformer import ptv1
+        from ao_tpu_torch.ops import gva as gva_mod
+        from ao_tpu_torch.ops import knn_spatial as ks
+
+        for name in names:
+            if name == "merge_topk":
+                self.wrap(ks, "merge_topk_probes", name)
+            elif name == "knn_window":
+                self.wrap(ks, name, name)
+            elif name == "fps":  # PT-v1's TransitionDown calls it by this name
+                self.wrap(ptv1, "farthest_point_sampling", name)
+            else:
+                self.wrap(gva_mod, name, name)
+        return self
 
     def restore(self):
         for module, attr, fn in reversed(self._undo):
@@ -615,7 +671,44 @@ def check_gva_bwd(args, out_k, out_p):
     return ok, max(errs), bound_ms, by, None, "rel " + " ".join(notes)
 
 
+# H100 SXM's highest boost clock (data sheet) and the latency of a
+# dependent f32 operation on an SM (4 cycles; a microbenchmark figure, not
+# a data-sheet one): the floor under a chain of dependent operations
+SM_CLOCK_HZ = 1.98e9
+DEPENDENT_OP_CYCLES = 4
+
+
+def check_fps(args, out_k, out_p):
+    """FPS against its plain version: indices and validity equal. Bound:
+    the larger of the bytes (coordinates and mask read once, indices and
+    validity written once) at the memory rate, the operations (about 10 a
+    valid point and step: 3 subtractions, 3 products, 2 sums, a minimum, a
+    comparison) at the f32 rate, and the chain of the steps: a step depends
+    on the last one's argmax, a reduction over N values that takes at least
+    log2(N) dependent operations. No PyTorch call computes FPS."""
+    coord, mask, m = args[:3]
+    (ik, vk), (ip, vp) = out_k, out_p
+    ok = torch.equal(ik, ip) and torch.equal(vk, vp)
+    err = float((ik != ip).sum())
+    B, N = mask.shape
+    n_valid = mask.sum(1)
+    steps = torch.clamp(torch.clamp_max(n_valid, m) - 1, min=0)
+    ops = 10.0 * float((steps * n_valid).sum())
+    chain_ms = (float(steps.max()) * math.ceil(math.log2(max(N, 2)))
+                * DEPENDENT_OP_CYCLES / SM_CLOCK_HZ * 1e3)
+    nbytes = _nbytes(coord, mask) + B * m * 5
+    bound_ms, by = _bound(nbytes, f32_ops=ops)
+    if chain_ms > bound_ms:
+        bound_ms, by = chain_ms, "operations"
+    return ok, err, bound_ms, by, None, (
+        f"indices differing {int(err)}; chain {chain_ms:.4f} ms")
+
+
 def describe(name, args):
+    if name == "fps":
+        coord, mask, m = args[:3]
+        return (f"B={coord.shape[0]} N={coord.shape[1]} m={m} "
+                f"valid={[int(v) for v in mask.sum(1)]}")
     if name == "knn_window":
         keys, _, _, q, _, k, tile_q, window = args
         return (f"B={q.shape[0]} Nq={q.shape[1]} Nk={keys.shape[1]} k={k} "
@@ -635,17 +728,20 @@ def describe(name, args):
 PLAIN = {}  # kernel name -> its plain version, filled by plain_versions()
 CHECKS = {"knn_window": check_knn_window, "merge_topk": check_merge_topk,
           "gva_eval": check_gva_eval, "gva_pos": check_gva_pos,
-          "gva_stats": check_gva_stats, "gva_bwd": check_gva_bwd}
+          "gva_stats": check_gva_stats, "gva_bwd": check_gva_bwd,
+          "fps": check_fps}
 
 
 def plain_versions():
     from ao_tpu_torch.ops import gva as g
     from ao_tpu_torch.ops import knn_spatial as ks
+    from ao_tpu_torch.ops import sampling
 
     PLAIN.update(knn_window=ks.knn_window_plain,
                  merge_topk=ks.merge_topk_probes_plain,
                  gva_eval=g.gva_eval_plain, gva_pos=g.gva_pos_plain,
-                 gva_stats=g.gva_stats_plain, gva_bwd=g.gva_bwd_plain)
+                 gva_stats=g.gva_stats_plain, gva_bwd=g.gva_bwd_plain,
+                 fps=sampling.farthest_point_sampling_plain)
     return PLAIN
 
 
@@ -664,6 +760,13 @@ def _device_ms(fn, name, **kw):
         return None
 
 
+# timed calls of the kernel and of its plain version (default (10, 3)):
+# FPS's plain version runs its m steps as separate launches (seconds at
+# 81920 points), and the kernel's steps run in sequence (a tenth of a
+# second)
+TIMING_REPS = {"fps": (3, 1)}
+
+
 def hold_captured(cap, phase):
     """Hold each kernel against its plain version on every captured
     (kernel, shape) and time both; raise if one disagrees. ``ms`` is the
@@ -673,15 +776,21 @@ def hold_captured(cap, phase):
     plain = plain_versions()
     rows, failures = [], []
     for key, (name, fn, args) in cap.calls.items():
+        reps, plain_reps = TIMING_REPS.get(name, (10, 3))
         with torch.inference_mode():
             out_k = fn(*args)
-            out_p = plain[name](*args)
-            torch.cuda.synchronize()
+            out = []
+            # with one timed call, the compared call is the timed one
+            first_ms = cuda_ms(lambda: out.append(plain[name](*args)), reps=1,
+                               warmup=0)
+            out_p = out[0]
             ok, err, bound_ms, by, lib_ms, note = CHECKS[name](args, out_k, out_p)
-            del out_k, out_p
-            ms = cuda_ms(lambda: fn(*args))
-            dev_ms = _device_ms(lambda: fn(*args), name, reps=5, warmup=0)
-            plain_ms = cuda_ms(lambda: plain[name](*args), reps=3, warmup=1)
+            del out_k, out_p, out
+            ms = cuda_ms(lambda: fn(*args), reps=reps, warmup=min(reps, 2))
+            dev_ms = _device_ms(lambda: fn(*args), name, reps=min(reps, 5),
+                                warmup=0)
+            plain_ms = first_ms if plain_reps == 1 else cuda_ms(
+                lambda: plain[name](*args), reps=plain_reps, warmup=1)
         row = dict(name=name, phase=phase, shape=describe(name, args), ok=ok,
                    max_abs_err=err, ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
                    bound_ms=bound_ms, bound_by=by, library_ms=lib_ms, note=note)
@@ -1892,21 +2001,11 @@ def capture_step(config, options, device, names, t0, label):
     wrappers of ``names`` (kernel names of :data:`KERNEL_INFO`) captured,
     then every captured (kernel, shape) held against its plain version and
     timed (:func:`hold_captured`)."""
-    from ao_tpu_torch.ops import gva as gva_mod
-    from ao_tpu_torch.ops import knn_spatial as ks
-
     trainer = build_trainer(options, device, config)
     it = iter(trainer.train_loader)
     batch = next(it)
     del it
-    cap = Capture()
-    for name in names:
-        if name == "merge_topk":
-            cap.wrap(ks, "merge_topk_probes", name)
-        elif name == "knn_window":
-            cap.wrap(ks, name, name)
-        else:
-            cap.wrap(gva_mod, name, name)
+    cap = Capture().wrap_path(names)
     try:
         m = trainer.train_step(batch)
         torch.cuda.synchronize()
@@ -1914,10 +2013,10 @@ def capture_step(config, options, device, names, t0, label):
         cap.restore()
     if not (torch.isfinite(m["loss"]) and torch.isfinite(m["grad_norm"])):
         raise RuntimeError(f"non-finite loss or gradient on the {label}")
+    caps = getattr(trainer.model.backbone, "stage_capacities", None)
+    caps = f", stage capacities {caps(batch['mask'].shape[1])}" if caps else ""
     log(t0, f"captured the {label}'s kernel inputs, (B, N) "
-            f"{tuple(batch['mask'].shape)}, stage capacities "
-            f"{trainer.model.backbone.stage_capacities(batch['mask'].shape[1])}"
-            f", loss {float(m['loss']):.4f}")
+            f"{tuple(batch['mask'].shape)}{caps}, loss {float(m['loss']):.4f}")
     del trainer, batch
     torch.cuda.empty_cache()
     rows = hold_captured(cap, label)
@@ -1925,6 +2024,23 @@ def capture_step(config, options, device, names, t0, label):
     if missing:
         raise RuntimeError(f"kernels never called on the {label}: {sorted(missing)}")
     return rows
+
+
+def held(names, label, fn, limit=None):
+    """Run ``fn`` with the wrappers of ``names`` captured (:class:`Capture`,
+    launches counted as without it; ``limit`` caps the shapes kept a
+    kernel), then hold every captured (kernel, shape) against its plain
+    version (:func:`hold_captured`). Returns (fn's result, rows)."""
+    cap = Capture(limit).wrap_path(names)
+    try:
+        out = fn()
+    finally:
+        cap.restore()
+    rows = hold_captured(cap, label)
+    missing = set(names) - {r["name"] for r in rows}
+    if missing:
+        raise RuntimeError(f"kernels never called on the {label}: {sorted(missing)}")
+    return out, rows
 
 
 def run_submit_test(config, device, seed, workdir, options):
@@ -2598,16 +2714,452 @@ def heads_phase(device, seed, t0, card="", scannet_dir=None, s3dis_rooms=None,
     return rows, launches, records
 
 
+# ---------------------------------------------------------------------------
+# phase 12: PT-v1, classification and part segmentation
+# ---------------------------------------------------------------------------
+
+PTV1_CONFIG = os.path.join(ROOT, "configs", "s3dis", "semseg-pt-v1-0-base.py")
+CLS_CONFIG = os.path.join(ROOT, "configs", "modelnet40", "cls-ptv1-0-base.py")
+CLS_SPUNET_CONFIG = os.path.join(ROOT, "configs", "modelnet40",
+                                 "cls-spunet-v1m1-0-base.py")
+# Seg50's batches, tried in turn from the config's own 12 until one fits
+PTV1_BATCHES = (12, 8, 6, 4, 3)
+# the kernels of the PT-v1 segmentation paths (the unpooling's K1 and K2
+# above 2M query x key pairs, FPS at every TransitionDown)
+PTV1_KERNELS = ("knn_window", "merge_topk", "fps")
+# ShapeNetPart's first two categories of synsetoffset2category.txt as the
+# smoke writes it (name, synset token), with all 16 named
+SHAPENET_CATEGORIES = (
+    ("Airplane", "02691156"), ("Bag", "02773838"), ("Cap", "02954340"),
+    ("Car", "02958343"), ("Chair", "03001627"), ("Earphone", "03261776"),
+    ("Guitar", "03467517"), ("Knife", "03624134"), ("Lamp", "03636649"),
+    ("Laptop", "03642806"), ("Motorbike", "03790512"), ("Mug", "03797390"),
+    ("Pistol", "03948459"), ("Rocket", "04099429"), ("Skateboard", "04225987"),
+    ("Table", "04379243"))
+
+
+def make_shape(seed, category, n=10000):
+    """A synthetic ModelNet-style shape of class ``category``: ``n`` points
+    on the surface of an ellipsoid, a box or a closed cylinder (by
+    ``category % 3``) with half-axes of the class (drawn from the class),
+    turned about z by an angle of the shape, with unit outward normals;
+    (n, 6) float32 rows x, y, z, nx, ny, nz."""
+    axes = np.random.default_rng(1000 + category).uniform(0.3, 1.0, 3)
+    rng = np.random.default_rng(seed)
+    kind = category % 3
+    if kind == 0:  # ellipsoid: a sphere's points scaled, normals by 1 / axes
+        u = rng.normal(size=(n, 3))
+        u /= np.linalg.norm(u, axis=1, keepdims=True)
+        p, nrm = u * axes, u / axes
+    elif kind == 1:  # box: a face by its area, a point uniform on it
+        area = np.array([axes[1] * axes[2], axes[0] * axes[2], axes[0] * axes[1]])
+        face = rng.choice(6, n, p=np.tile(area, 2) / (2 * area.sum()))
+        axis, sign = face % 3, np.where(face < 3, 1.0, -1.0)
+        p = rng.uniform(-1, 1, (n, 3)) * axes
+        p[np.arange(n), axis] = sign * axes[axis]
+        nrm = np.zeros((n, 3))
+        nrm[np.arange(n), axis] = sign
+    else:  # cylinder about z: side or caps by their areas
+        r, h = axes[0], axes[2]
+        side = rng.random(n) < h / (h + r)
+        t = rng.uniform(0, 2 * np.pi, n)
+        rad = np.where(side, r, r * np.sqrt(rng.random(n)))
+        z = np.where(side, rng.uniform(-h, h, n),
+                     np.where(rng.random(n) < 0.5, h, -h))
+        p = np.stack([rad * np.cos(t), rad * np.sin(t), z], axis=1)
+        nrm = np.where(side[:, None], np.stack([np.cos(t), np.sin(t),
+                                                np.zeros(n)], axis=1),
+                       np.stack([np.zeros(n), np.zeros(n), np.sign(z)], axis=1))
+    nrm /= np.linalg.norm(nrm, axis=1, keepdims=True)
+    a = rng.uniform(0, 2 * np.pi)
+    rot = np.array([[np.cos(a), -np.sin(a), 0], [np.sin(a), np.cos(a), 0],
+                    [0, 0, 1]])
+    return np.concatenate([p @ rot.T, nrm @ rot.T], axis=1).astype(np.float32)
+
+
+def modelnet_setup(workdir, names, per_class=(1, 1), n_points=10000, seed=0):
+    """Write synthetic shapes in ModelNet40's layout under
+    ``<workdir>/modelnet40``: ``<shape>/<shape>_<nnnn>.txt`` (comma-separated
+    x, y, z and normal, :func:`make_shape`) and the ``modelnet40_train.txt``
+    / ``modelnet40_test.txt`` split lists, ``per_class`` (train, test)
+    shapes of every class of ``names``. Returns the root."""
+    root = os.path.join(workdir, "modelnet40")
+    for split, per, first in (("train", per_class[0], 1),
+                              ("test", per_class[1], per_class[0] + 1)):
+        listed = []
+        for c, shape in enumerate(names):
+            os.makedirs(os.path.join(root, shape), exist_ok=True)
+            for j in range(first, first + per):
+                name = f"{shape}_{j:04d}"
+                np.savetxt(os.path.join(root, shape, name + ".txt"),
+                           make_shape(seed * 100003 + c * 1009 + j, c, n_points),
+                           delimiter=",", fmt="%.6f")
+                listed.append(name)
+        with open(os.path.join(root, f"modelnet40_{split}.txt"), "w") as f:
+            f.write("\n".join(listed) + "\n")
+    return root
+
+
+def cls_options(root, n_shapes, batch_size, steps, save_path, seed, workers=8):
+    """The train entry point's overrides for ``steps`` steps of a ModelNet
+    config at ``batch_size`` on the ``n_shapes`` train shapes under
+    ``root``, in one epoch: the entry point loops the train split epoch //
+    eval_epoch times an epoch, so ``epoch`` sets the loop (both ModelNet
+    configs evaluate every 200 epochs). The cut epoch ends with the
+    config's ClsEvaluator on the test split."""
+    loop = -(-batch_size * steps // n_shapes)
+    return [f"save_path={save_path}", f"batch_size={batch_size}",
+            f"max_steps={steps}", f"num_worker={workers}", f"seed={seed}",
+            f"epoch={200 * loop}", f"data.train.data_root={root}",
+            f"data.val.data_root={root}", f"data.test.data_root={root}",
+            "enable_tensorboard=False"]
+
+
+def shapenetpart_setup(workdir, shapes=((0, 2500), (4, 2500)), seed=0):
+    """Write synthetic shapes in ShapeNetPart's layout under
+    ``<workdir>/shapenetpart``: synsetoffset2category.txt (the 16
+    categories), ``<token>/<name>.txt`` (whitespace-separated x, y, z,
+    normal, part) for each (category index, points) of ``shapes`` and the
+    test split's ``train_test_split/shuffled_test_file_list.json``. A
+    shape is :func:`make_shape`'s surface whose parts, the category's
+    parts of ShapeNetPartDataset, split it in equal slabs along z."""
+    from ao_tpu_torch.datasets.misc_datasets import ShapeNetPartDataset
+
+    root = os.path.join(workdir, "shapenetpart")
+    os.makedirs(os.path.join(root, "train_test_split"), exist_ok=True)
+    with open(os.path.join(root, "synsetoffset2category.txt"), "w") as f:
+        f.write("".join(f"{n}\t{t}\n" for n, t in SHAPENET_CATEGORIES))
+    listed = []
+    for i, (cat, n) in enumerate(shapes):
+        name, token = SHAPENET_CATEGORIES[cat]
+        pts = make_shape(seed + i, cat, n)
+        parts = ShapeNetPartDataset.category2part[name]
+        z = pts[:, 2]
+        slab = ((z - z.min()) / max(np.ptp(z), 1e-6) * len(parts)).astype(int)
+        label = np.asarray(parts)[np.clip(slab, 0, len(parts) - 1)]
+        os.makedirs(os.path.join(root, token), exist_ok=True)
+        np.savetxt(os.path.join(root, token, f"shape_{i}.txt"),
+                   np.concatenate([pts, label[:, None]], axis=1), fmt="%.6f")
+        listed.append(f"shape_data/{token}/shape_{i}")
+    with open(os.path.join(root, "train_test_split",
+                           "shuffled_test_file_list.json"), "w") as f:
+        json.dump(listed, f)
+    return root
+
+
+def partseg_config(root, save_path, weight, backbone="PointTransformer-PartSeg50",
+                   pad_multiple=1024):
+    """A part-segmentation test config (the repo has none): ShapeNetPart's
+    test split, coordinates normalised into the unit sphere, two views
+    scaled by 0.9 and 1.1, features coord and normal; PT-v1 PartSeg with
+    the 16 shape classes and 50 parts."""
+    from ao_tpu_torch.utils import Config
+
+    return Config(dict(
+        save_path=save_path, weight=weight, pad_multiple=pad_multiple,
+        data=dict(num_classes=50, ignore_index=-1, test=dict(
+            type="ShapeNetPartDataset", split="test", data_root=root,
+            transform=[dict(type="NormalizeCoord")], test_mode=True,
+            test_cfg=dict(
+                voxelize=None, crop=None,
+                post_transform=[dict(type="ToTensor"), dict(
+                    type="Collect", keys=("coord", "index"),
+                    feat_keys=("coord", "normal"))],
+                aug_transform=[[dict(type="RandomScale", scale=[0.9, 0.9])],
+                               [dict(type="RandomScale", scale=[1.1, 1.1])]]))),
+        model=dict(type="DefaultSegmentor", backbone=dict(
+            type=backbone, in_channels=6, num_classes=50,
+            num_shape_classes=16))))
+
+
+def run_partseg(device, root, workdir, seed, backbone="PointTransformer-PartSeg50",
+                pad_multiple=1024):
+    """PartSegTester with random weights from ``seed`` on the shapes under
+    ``root``; returns its result (ins.mIoU, cat.mIoU)."""
+    from ao_tpu_torch.engines import TEST
+    from ao_tpu_torch.models import build_model
+
+    weight = os.path.join(workdir, "partseg.pt")
+    cfg = partseg_config(root, os.path.join(workdir, "partseg_test"), weight,
+                         backbone, pad_multiple)
+    os.makedirs(cfg.save_path, exist_ok=True)
+    torch.manual_seed(seed)
+    torch.save(build_model(dict(cfg.model)).state_dict(), weight)
+    return TEST.build(dict(type="PartSegTester", cfg=cfg, verbose=True,
+                           device=str(device)))()
+
+
+def voxel_sites(batch):
+    """Sites a scene of SpUNet's level 0 when no discrete_coord is given:
+    distinct floor(coord - the scene's minimum) of its valid points."""
+    from ao_tpu_torch.models.sparse_unet.spunet import voxel_coords
+
+    dc = voxel_coords(batch["coord"], batch["mask"])
+    return [len(torch.unique(dc[b][batch["mask"][b]], dim=0))
+            for b in range(dc.shape[0])]
+
+
+class KnnTimer:
+    """CUDA events around every exact-kNN call of PT-v1 (its layers'
+    knn_query and TransitionDown's knn), each noted as chunked or not
+    (above ``CHUNK_ELEMENTS`` scores ops/knn.py takes its chunks of
+    torch.topk); ``ms()`` reads (all, chunked) ms after a synchronize."""
+
+    def __enter__(self):
+        import importlib
+
+        from ao_tpu_torch.models.point_transformer import ptv1
+
+        self.calls = []
+        self._orig = {n: getattr(ptv1, n) for n in ("knn", "knn_query")}
+        chunk = importlib.import_module("ao_tpu_torch.ops.knn").CHUNK_ELEMENTS
+
+        def timed(fn, scores):
+            def call(*args):
+                s = torch.cuda.Event(enable_timing=True)
+                e = torch.cuda.Event(enable_timing=True)
+                s.record()
+                out = fn(*args)
+                e.record()
+                self.calls.append((s, e, scores(*args) > chunk))
+                return out
+            return call
+
+        ptv1.knn = timed(self._orig["knn"], lambda q, k, *a: (
+            q.shape[0] * q.shape[1] * k.shape[1]))
+        ptv1.knn_query = timed(self._orig["knn_query"], lambda k, c, *a: (
+            c.shape[0] * c.shape[1] ** 2))
+        return self
+
+    def __exit__(self, *exc):
+        from ao_tpu_torch.models.point_transformer import ptv1
+
+        for n, fn in self._orig.items():
+            setattr(ptv1, n, fn)
+
+    def ms(self):
+        torch.cuda.synchronize()
+        t = [(s.elapsed_time(e), c) for s, e, c in self.calls]
+        return sum(x for x, _ in t), sum(x for x, c in t if c)
+
+
+def time_ptv1_knn(trainer, card):
+    """One more train step of the Seg50 trainer on a batch of its loader with
+    :class:`KnnTimer` on: its seconds (host clock, ending in a
+    synchronize), the kNN ms in it and their share."""
+    batch = next(iter(trainer.train_loader))
+    torch.cuda.synchronize()
+    with KnnTimer() as timer:
+        t = time.perf_counter()
+        m = trainer.train_step(batch)
+        float(m["loss"])
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t) * 1e3
+    knn_ms, chunked_ms = timer.ms()
+    rec = dict(step_ms=step_ms, knn_ms=knn_ms, chunked_ms=chunked_ms,
+               calls=len(timer.calls), chunked_calls=sum(c for *_, c in timer.calls),
+               share=knn_ms / step_ms, chunked_share=chunked_ms / step_ms)
+    print(f"ptv1 seg50 kNN: {rec['calls']} calls ({rec['chunked_calls']} chunked) "
+          f"take {knn_ms:.1f} ms of a {step_ms:.1f} ms step (share "
+          f"{rec['share']:.3f}; chunked {chunked_ms:.1f} ms, "
+          f"{rec['chunked_share']:.3f}); card {card}", flush=True)
+    return rec
+
+
+def fps_cases(device, seed=0):
+    """FPS inputs beside the path's own: a padded batch (a full scene and
+    scenes of 12000 and 3 valid points in 16384 rows) and integer-grid
+    points with exact ties (a 16^3 lattice, shuffled, two scenes)."""
+    g = torch.Generator().manual_seed(seed)
+    coord = torch.rand((3, 16384, 3), generator=g) * torch.tensor([6.0, 5.0, 3.0])
+    mask = torch.zeros((3, 16384), dtype=torch.bool)
+    for b, n in enumerate((16384, 12000, 3)):
+        mask[b, :n] = True
+    grid = torch.stack(torch.meshgrid(*[torch.arange(16.0)] * 3, indexing="ij"),
+                       -1).reshape(-1, 3)
+    lattice = torch.stack([grid[torch.randperm(len(grid), generator=g)]
+                           for _ in range(2)])
+    return [(coord.to(device), mask.to(device), 4096),
+            (lattice.to(device), torch.ones(lattice.shape[:2], dtype=torch.bool,
+                                            device=device), 1024)]
+
+
+def ptv1_phase(device, seed, t0, card="", rooms=None, test_room=None, steps=3):
+    """Phase 12: PT-v1 and the classification and part-segmentation tasks
+    at full width (f32). FPS held against its plain version on
+    :func:`fps_cases`. configs/s3dis/semseg-pt-v1-0-base.py (Seg50,
+    AdamW, MultiStepLR) on the train phase's rooms (made here where None)
+    written with their loop: one train step at the first of
+    :data:`PTV1_BATCHES` that fits (each that does not prints the peak
+    reached) with its K1, K2 and FPS calls captured and held, then
+    ``steps`` counted steps at that batch, one more timed for its exact
+    kNN (:func:`time_ptv1_knn`), and whole-scene testing of ``test_room``
+    (the slice phase's) with the config's views, the kernel calls of its
+    first fragment batch held. Then ModelNet40 shapes
+    made here (:func:`modelnet_setup`: 40 classes, one train and one test
+    shape each, 10000 points): configs/modelnet40/cls-ptv1-0-base.py as
+    written (Cls26, B=32 x 1024, SGD nesterov, MultiStepLR) for ``steps``
+    steps, its cut epoch ending with the ClsEvaluator, then its ClsTester
+    through the test entry point, each with its FPS calls held;
+    cls-spunet-v1m1-0-base.py ``steps`` steps at its B=16 with the sites a
+    scene of its voxelisation printed. Then PartSeg50 with the
+    PartSegTester on two ShapeNetPart shapes, its kernel calls held.
+    Returns (kernel rows, launches by path, records)."""
+    import gc
+
+    from ao_tpu_torch.models import build_model
+    from ao_tpu_torch.tools.test import main as test_main
+    from ao_tpu_torch.utils import Config
+
+    t_phase = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="ao_chip_ptv1_")
+    launches, records = {}, {}
+
+    # FPS on the padded and tied inputs
+    from ao_tpu_torch.ops import sampling
+
+    cases = {("fps", i): ("fps", sampling.farthest_point_sampling, list(a))
+             for i, a in enumerate(fps_cases(device, seed))}
+    rows = hold_captured(type("Cases", (), dict(calls=cases))(), "fps cases")
+    log(t0, "FPS cases held")
+
+    # Seg50 on S3DIS: the batch that fits, its kernels held, counted steps
+    if rooms is None:
+        rooms = [make_room(s_, size) for s_, size in TRAIN_ROOMS]
+    s3_dir, _ = train_setup(rooms, os.path.join(work, "s3dis_data"))
+    s3_root = os.path.join(s3_dir, "s3dis")
+    n_s3 = len(os.listdir(s3_root))
+
+    def opts(batch, n_steps, name):
+        return sparse_options(s3_root, n_s3, batch, n_steps,
+                              os.path.join(work, name), seed)
+
+    for batch in PTV1_BATCHES:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            rows += capture_step(PTV1_CONFIG, opts(batch, 1, f"seg50_k{batch}"),
+                                 device, PTV1_KERNELS, t0,
+                                 f"PT-v1 Seg50 train step B={batch}")
+            break
+        except torch.cuda.OutOfMemoryError as e:
+            print(f"ptv1 seg50 train B={batch}: out of memory, peak reached "
+                  f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB ("
+                  f"{str(e).splitlines()[0][:160]}); card {card}", flush=True)
+            del e
+            gc.collect()
+            torch.cuda.empty_cache()
+    else:
+        raise RuntimeError(f"PT-v1 Seg50 fits none of the batches {PTV1_BATCHES}")
+    print(f"ptv1 seg50: B={batch} fits; captured step peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; card {card}",
+          flush=True)
+    launches["seg50_train"], records["seg50_train"], trainer = train_run(
+        f"s3dis ptv1 seg50 train B={batch}", PTV1_CONFIG, device,
+        opts(batch, steps, "seg50"), steps, PTV1_KERNELS, multistep_of, card,
+        keep=True)
+    records["seg50_knn"] = time_ptv1_knn(trainer, card)
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(t0, "PT-v1 Seg50 train done")
+
+    setup = slice_setup(test_room if test_room is not None
+                        else make_room(seed), workdir=os.path.join(work, "scene"))
+    workdir, options, n_views = setup
+    torch.manual_seed(seed)
+    torch.save(build_model(dict(Config.fromfile(PTV1_CONFIG).model)).state_dict(),
+               os.path.join(workdir, "model.pt"))
+    t = time.perf_counter()
+    # the first fragment batch's kernel calls held (a plain FPS at 65536
+    # points takes seconds)
+    (result, launches["seg50_test"]), held_rows = held(
+        PTV1_KERNELS, "PT-v1 Seg50 scene test", lambda: _drive(
+            PTV1_KERNELS, lambda: test_main(
+                ["--config-file", PTV1_CONFIG, "--device", str(device),
+                 "--options", *options])),
+        limit={"fps": 4, "knn_window": 3, "merge_topk": 3})
+    rows += held_rows
+    votes = np.load(os.path.join(workdir, "exp", "result", "office_1_pred.npy"))
+    check_votes(votes, n_views)
+    scene = result["scenes"][0]
+    records["seg50_test"] = dict(scene, seconds_total=time.perf_counter() - t)
+    print(f"s3dis ptv1 seg50 test: {scene['fragments']} fragments in batches "
+          f"(B, N) {scene['batches']}; scene {scene['seconds']:.2f} s; votes "
+          f"{votes.shape}; mIoU {result['mIoU']:.4f} (random weights); launches "
+          f"{launches['seg50_test']}; card {card}", flush=True)
+    torch.cuda.empty_cache()
+    log(t0, "PT-v1 Seg50 scene test done")
+
+    # ModelNet40: Cls26 with its evaluator and tester, SpUNet cls_mode
+    names = list(Config.fromfile(CLS_CONFIG).data.names)
+    mn_root = modelnet_setup(work, names, seed=seed)
+    (launches["cls_train"], records["cls_train"], trainer), held_rows = held(
+        ("fps",), "Cls26 train B=32", lambda: train_run(
+            "modelnet40 ptv1 cls26 train B=32 (as written)", CLS_CONFIG, device,
+            cls_options(mn_root, len(names), 32, steps, os.path.join(work, "cls"),
+                        seed), steps, ("fps",), multistep_of, card, keep=True))
+    rows += held_rows
+    val = trainer.comm_info.get("val_result")
+    if val is None or not (np.isfinite(val["mAcc"]) and np.isfinite(val["allAcc"])):
+        raise RuntimeError(f"the ClsEvaluator gave no finite result: {val}")
+    records["cls_val"] = val
+    del trainer
+    torch.cuda.empty_cache()
+    (res, launches["cls_test"]), held_rows = held(
+        ("fps",), "Cls26 test", lambda: _drive(("fps",), lambda: test_main(
+            ["--config-file", CLS_CONFIG, "--device", str(device), "--options",
+             f"weight={os.path.join(work, 'cls', 'model', 'model_last.pt')}",
+             f"save_path={os.path.join(work, 'cls_test')}",
+             f"data.test.data_root={mn_root}"])))
+    rows += held_rows
+    if not (np.isfinite(res["mAcc"]) and np.isfinite(res["allAcc"])):
+        raise RuntimeError(f"the ClsTester gave no finite result: {res}")
+    records["cls_test"] = res
+    print(f"modelnet40 ptv1 cls26: ClsEvaluator mAcc {val['mAcc']:.4f} allAcc "
+          f"{val['allAcc']:.4f} ({val['batches']} batches, {val['seconds']:.2f} "
+          f"s); ClsTester mAcc {res['mAcc']:.4f} allAcc {res['allAcc']:.4f} "
+          f"(random weights, {steps} steps); card {card}", flush=True)
+    launches["cls_spunet_train"], records["cls_spunet_train"], trainer = train_run(
+        "modelnet40 spunet cls train B=16 (as written)", CLS_SPUNET_CONFIG,
+        device, cls_options(mn_root, len(names), 16, steps,
+                            os.path.join(work, "cls_spunet"), seed) + [
+            "evaluate=False"], steps, (), multistep_of, card, keep=True)
+    sites = voxel_sites(next(iter(trainer.train_loader)))
+    records["cls_spunet_sites"] = sites
+    print(f"modelnet40 spunet cls: level-0 sites a scene {sites} (no GridSample "
+          f"in the config: floor(coord - min) of the unit-sphere shapes); card "
+          f"{card}", flush=True)
+    del trainer
+    torch.cuda.empty_cache()
+    log(t0, "ModelNet40 done")
+
+    # PartSeg50 with the PartSegTester
+    ps_root = shapenetpart_setup(work, seed=seed)
+    (res, launches["partseg_test"]), held_rows = held(
+        PTV1_KERNELS, "PartSeg50 test", lambda: _drive(
+            PTV1_KERNELS, lambda: run_partseg(device, ps_root, work, seed)))
+    rows += held_rows
+    if not (np.isfinite(res["ins_mIoU"]) and np.isfinite(res["cat_mIoU"])):
+        raise RuntimeError(f"the PartSegTester gave no finite result: {res}")
+    records["partseg_test"] = res
+    print(f"shapenetpart ptv1 partseg50: ins.mIoU {res['ins_mIoU']:.4f} cat.mIoU "
+          f"{res['cat_mIoU']:.4f} (random weights, 2 shapes, 2 views); launches "
+          f"{launches['partseg_test']}; card {card}", flush=True)
+    log(t0, f"PT-v1 phase done in {time.perf_counter() - t_phase:.1f} s")
+    return rows, launches, records
+
+
 def _wrappers():
     """The kernels' wrappers (the wrapper itself where a counting shim of
     :class:`InstanceLaunches` stands in its place)."""
-    from ao_tpu_torch.ops import gva, knn_spatial
+    from ao_tpu_torch.ops import gva, knn_spatial, sampling
 
     ws = {"knn_window": knn_spatial.knn_window,
           "merge_topk": knn_spatial.merge_topk_probes,
           "gva_eval": gva.gva_eval,
           "gva_pos": gva.gva_pos, "gva_stats": gva.gva_stats,
-          "gva_bwd": gva.gva_bwd}
+          "gva_bwd": gva.gva_bwd, "fps": sampling.farthest_point_sampling}
     return {n: getattr(w, "__wrapped__", w) for n, w in ws.items()}
 
 
@@ -2823,10 +3375,12 @@ def run(device, seed, t0, room_size=(4.8, 4.0, 2.6), train_steps=5, card="",
     sp_rows, sp_launches, _ = sparse_phase(device, seed, t0, card, sc_dir,
                                            kitti_dir, workdir)
     hd_rows, hd_launches, _ = heads_phase(device, seed, t0, card, sc_dir, rooms)
+    v1_rows, v1_launches, _ = ptv1_phase(device, seed, t0, card, rooms, room)
 
     # one entry per kernel: its heaviest captured shape of the S3DIS paths
     kernels = []
-    for name, info in KERNEL_INFO.items():
+    for name in TRAIN_KERNELS:
+        info = KERNEL_INFO[name]
         row = max((r for r in rows if r["name"] == name),
                   key=lambda r: r["bound_ms"])
         by_path = {"test": slice_launches[name], "train": train_launches[name],
@@ -2867,7 +3421,8 @@ def run(device, seed, t0, room_size=(4.8, 4.0, 2.6), train_steps=5, card="",
     for tag, phase_rows, paths in (
             ("outdoor", out_rows, out_launches), ("ptv2m1", m1_rows, m1_launches),
             ("sparse", sp_rows, sp_launches),
-            ("cac", hd_rows, {"cac_ptv2_train": hd_launches["cac_ptv2_train"]})):
+            ("cac", hd_rows, {"cac_ptv2_train": hd_launches["cac_ptv2_train"]}),
+            ("ptv1", [r for r in v1_rows if r["name"] != "fps"], v1_launches)):
         for name in sorted({r["name"] for r in phase_rows}):
             row = max((r for r in phase_rows if r["name"] == name),
                       key=lambda r: r["bound_ms"])
@@ -2882,6 +3437,25 @@ def run(device, seed, t0, room_size=(4.8, 4.0, 2.6), train_steps=5, card="",
                 bound_ms=row["bound_ms"], bound_by=row["bound_by"],
                 library_ms=row["library_ms"],
                 shape=f"{row['phase']}: {row['shape']}"))
+    # and FPS (phase 12's paths only): one entry for the S3DIS Seg50 paths
+    # (with the padded and tied cases), one for the ModelNet Cls26 paths'
+    # small scenes and one for PartSeg50's, each at its heaviest shape there
+    # and with the launches of its own paths
+    for name, phases, paths in (
+            ("fps", ("PT-v1 Seg50", "fps cases"), ("seg50_train", "seg50_test")),
+            ("fps[cls26]", ("Cls26",), ("cls_train", "cls_test")),
+            ("fps[partseg50]", ("PartSeg50",), ("partseg_test",))):
+        row = max((r for r in v1_rows if r["name"] == "fps"
+                   and r["phase"].startswith(phases)), key=lambda r: r["bound_ms"])
+        by_path = {p: v1_launches[p]["fps"] for p in paths}
+        if sum(by_path.values()) <= 0:
+            raise RuntimeError(f"{name} never launched on its paths")
+        kernels.append(dict(
+            name=name, **KERNEL_INFO["fps"], launches=sum(by_path.values()),
+            launches_by_path=by_path, max_abs_err=row["max_abs_err"],
+            ms=row["ms"], device_ms=row["device_ms"], plain_ms=row["plain_ms"],
+            bound_ms=row["bound_ms"], bound_by=row["bound_by"],
+            library_ms=row["library_ms"], shape=f"{row['phase']}: {row['shape']}"))
     return kernels
 
 
@@ -2917,6 +3491,10 @@ def main():
         "--heads", action="store_true",
         help="run only phase 11 (the CAC, PointGroup and MSC configs, on rooms "
              "made for it), and no kernel record")
+    parser.add_argument(
+        "--ptv1", action="store_true",
+        help="run only phase 12 (PT-v1 Seg50, the ModelNet40 configs and "
+             "PartSeg50, on data made for it), and no kernel record")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA card (torch.cuda.is_available() is "
@@ -2951,8 +3529,10 @@ def main():
         sparse_phase(torch.device("cuda"), args.seed, t0, card, profile=True)
     if args.heads:
         heads_phase(torch.device("cuda"), args.seed, t0, card)
+    if args.ptv1:
+        ptv1_phase(torch.device("cuda"), args.seed, t0, card)
     if (args.scannet_batch is not None or args.outdoor_batch is not None
-            or args.sparse or args.heads):
+            or args.sparse or args.heads or args.ptv1):
         faulthandler.cancel_dump_traceback_later()
         print(f"card: {card}", flush=True)
         return 0

@@ -776,8 +776,10 @@ def test_chunked_knn_equals_full_stable_sort(monkeypatch, k):
 def test_chunked_knn_tie_across_the_kth_place(monkeypatch):
     """Pinned: six keys tied at distance 1 from the query (and one nearer),
     k = 3. The full stable sort and the JAX package's tiled merge keep
-    the lowest indices [7, 0, 1]; the chunked path keeps torch.topk's
-    choice among the tied, on the CPU [7, 0, 4] (the same distances)."""
+    the lowest indices [7, 0, 1]; so does the chunked path, which takes a
+    row tied across its k-th place again from its full stable sort
+    (torch.topk alone keeps its own choice among the tied, on the CPU
+    [7, 0, 4])."""
     kc = torch.tensor([[[1., 0, 0], [0, 1, 0], [0, 0, 1], [-1, 0, 0], [0, -1, 0],
                         [0, 0, -1], [2, 0, 0], [0, 0, 0.5]]])
     q = torch.zeros(1, 2, 3)
@@ -785,7 +787,9 @@ def test_chunked_knn_tie_across_the_kth_place(monkeypatch):
     monkeypatch.setattr(knn_mod, "CHUNK_ELEMENTS", 8)
     chunk = knn(q, kc, 3)
     assert full[0][0].tolist() == [[7, 0, 1]] * 2
-    assert chunk[0][0].tolist() == [[7, 0, 4]] * 2
+    assert chunk[0][0].tolist() == [[7, 0, 1]] * 2
+    assert torch.topk(((kc[0] - q[0, :1]) ** 2).sum(-1), 3, largest=False
+                      )[1].tolist() == [7, 0, 4]
     assert torch.equal(full[1], chunk[1])
     j = jax_knn(jnp.asarray(q.numpy()), jnp.asarray(kc.numpy()), 3)
     assert np.asarray(j[0])[0].tolist() == [[7, 0, 1]] * 2

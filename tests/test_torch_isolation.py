@@ -13,8 +13,10 @@ ao_tpu made unimportable; and every PT-v2 config, every
 sparse-convolution config and every CAC, PointGroup and MSC config
 (building its model) loads through the port's Config without importing
 ao_tpu (the ScanNet200 configs' own import of ao_tpu's class names is
-served from the port's copy), the heads' entry points run, and the port's
-clustering library leaves native/ untouched."""
+served from the port's copy), the heads' entry points run, the port's
+clustering library leaves native/ untouched, and the PT-v1 and ModelNet40
+configs load and build, with a classification step, its tester and the
+part-segmentation tester run."""
 
 import os
 import re
@@ -265,6 +267,60 @@ def test_heads_configs_and_entry_points_without_ao_tpu():
     assert status.returncode == 0 and status.stdout == ""
 
 
+_PTV1 = r"""
+import sys, tempfile
+for name in ("jax", "ao_tpu", "flax", "optax"):
+    sys.modules[name] = None
+import numpy as np
+import chip_smoke
+from ao_tpu_torch.models import build_model
+from ao_tpu_torch.tools.test import main as test_main
+from ao_tpu_torch.utils import Config
+files = ["configs/s3dis/semseg-pt-v1-0-base.py", "configs/scannet/semseg-pt-v1-0-base.py",
+         "configs/scannet200/semseg-pt-v1-0-base.py",
+         "configs/modelnet40/cls-ptv1-0-base.py",
+         "configs/modelnet40/cls-spunet-v1m1-0-base.py"]
+types = []
+for f in files:
+    cfg = Config.fromfile(f)
+    types.append(f"{cfg.model.type}/{cfg.model.backbone.type}")
+    build_model(dict(cfg.model))
+work = tempfile.mkdtemp()
+names = list(Config.fromfile(files[3]).data.names)
+root = chip_smoke.modelnet_setup(work, names[:4], n_points=1500)
+cls = chip_smoke.run_train("cpu", chip_smoke.cls_options(
+    root, 4, 2, 1, work + "/cls", 0, workers=0), files[3])
+res = test_main(["--config-file", files[3], "--device", "cpu", "--options",
+                 f"weight={work}/cls/model/model_last.pt",
+                 f"save_path={work}/cls_test", f"data.test.data_root={root}"])
+ps = chip_smoke.run_partseg("cpu", chip_smoke.shapenetpart_setup(
+    work, shapes=((0, 400), (4, 500))), work, 0,
+    backbone="PointTransformer-PartSeg26", pad_multiple=256)
+assert np.isfinite([cls.history[0]["loss"], cls.comm_info["val_result"]["allAcc"],
+                    res["allAcc"], ps["ins_mIoU"]]).all()
+assert not any(k == "jax" or k.startswith(("jax.", "ao_tpu.", "flax", "optax"))
+               for k, v in sys.modules.items() if v is not None)
+print("PTV1", " ".join(types))
+"""
+
+
+def test_ptv1_and_modelnet_configs_without_ao_tpu():
+    """With jax and ao_tpu unimportable: the three PT-v1 semseg configs and
+    the two ModelNet40 configs load through the port's Config and build
+    their models as written; a ModelNet Cls26 step (its ClsEvaluator on
+    the test split) and its ClsTester, and a PartSeg26 PartSegTester run on
+    synthetic shapes through chip_smoke's helpers."""
+    env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="1")
+    res = subprocess.run(
+        [sys.executable, "-c", _PTV1], cwd=ROOT, env=env, capture_output=True,
+        text=True, timeout=240,
+    )
+    assert res.returncode == 0, res.stderr[-4000:]
+    assert res.stdout.split("PTV1")[1].split() == [
+        "DefaultSegmentor/PointTransformer-Seg50"] * 3 + [
+        "DefaultSegmentor/PointTransformer-Cls26", "DefaultClassifier/SpUNet-v1m1"]
+
+
 def test_port_sources_name_no_jax_no_ao_tpu_no_cpp_extension():
     files = [os.path.join(ROOT, "chip_smoke.py")]
     for d, _, names in os.walk(os.path.join(ROOT, "ao_tpu_torch")):
@@ -300,7 +356,10 @@ def test_port_sources_name_no_jax_no_ao_tpu_no_cpp_extension():
                 "csrc/host/cluster.cpp", "engines/insseg_eval.py",
                 "engines/train_insseg.py", "engines/train_pretrain.py",
                 "tools/train_insseg.py", "tools/train_pretrain.py",
-                "datasets/synthetic.py", "ops/knn.py"):
+                "datasets/synthetic.py", "ops/knn.py", "ops/sampling.py",
+                "csrc/fps.cu", "models/point_transformer/ptv1.py",
+                "models/point_transformer/convert.py", "datasets/modelnet.py",
+                "engines/hooks/evaluator.py"):
         assert f"ao_tpu_torch/{mod}" in names
     # the one place that names an ao_tpu module: the module name that the
     # config loader serves from the port's copy (a sys.modules key, never
