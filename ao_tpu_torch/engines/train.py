@@ -27,8 +27,10 @@ grid-sampled points or, when the batch carries ``origin_coord`` /
 The train loader collates with Mix3D (``cfg.mix_prob``,
 ``point_collate_fn``); the mix draw comes from the loader's generator
 (with workers, from each worker's default generator, which the loader
-seeds from its own). Not ported yet: parameter groups, and data
-parallelism over several cards.
+seeds from its own). The config's top-level ``param_dicts`` become the
+optimizer's parameter groups, as in Pointcept's trainer (the JAX
+package's Trainer hands only ``cfg.optimizer`` on and drops them). Not
+ported yet: data parallelism over several cards.
 """
 
 from __future__ import annotations
@@ -158,7 +160,8 @@ class Trainer(TrainerBase):
         self.total_steps = len(self.train_loader) * self.max_epoch
         self.max_steps = min(cfg.get("max_steps") or self.total_steps,
                              self.total_steps)
-        self.optimizer = build_optimizer(cfg.optimizer, self.model)
+        self.optimizer = build_optimizer(cfg.optimizer, self.model,
+                                         cfg.get("param_dicts"))
         self.scheduler = build_scheduler(cfg.scheduler, self.optimizer,
                                          self.total_steps)
         self.step = 0

@@ -7,3 +7,4 @@ from . import sparse_unet  # noqa: F401
 from .context_aware_classifier import cac  # noqa: F401
 from .point_group import point_group  # noqa: F401
 from .masked_scene_contrast import msc  # noqa: F401
+from . import swin3d  # noqa: F401

@@ -12,3 +12,4 @@ from .grid_pool import grid_pool, unpool_map
 from .interpolation import interpolation
 from .gva import gva_eval, pack_coords
 from .sampling import farthest_point_sampling
+from .window_partition import pack_windows, window_ids

@@ -35,7 +35,7 @@ import torch
 
 from ..ops import _native
 from ..ops import knn_spatial as ks
-from ..utils.devtime import device_ms
+from ..utils.devtime import device_ms, trace
 from .check_knn_window import KINDS, cloud
 
 # (label, B, N, probes, k, tile_q, window, self graph)
@@ -65,17 +65,7 @@ def probes(kind, seed, shape, device):
 def total_device(fn, reps=10):
     """(device ms per call summed over every kernel ``fn`` launches, device
     launches per call), from torch.profiler."""
-    fn()
-    torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    ev = [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA")]
-    return (sum(e.self_device_time_total for e in ev) / 1e3 / reps,
-            sum(e.count for e in ev) / reps)
+    return trace(fn, reps)[1:3]
 
 
 def bitwise(a, b):

@@ -18,12 +18,12 @@ from __future__ import annotations
 
 import argparse
 import json
-import time
 
 import torch
 
 from ..models import build_model
 from ..utils import Config
+from ..utils.devtime import trace
 
 # substrings of the port kernels' names (K6's sums pass counts with K6)
 PORT_KERNELS = ("knn_window", "merge_topk", "gva_eval", "gva_pos",
@@ -33,21 +33,9 @@ PORT_KERNELS = ("knn_window", "merge_topk", "gva_eval", "gva_pos",
 def traced(fn, reps):
     """(wall ms, device ms, launches, {port kernel: launches}) per call of
     ``fn`` over ``reps`` traced calls, after one untraced call."""
-    fn()
-    torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        t = time.perf_counter()
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t) * 1e3 / reps
-    ev = [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA")]
+    wall_ms, device_ms, launches, ev = trace(fn, reps)
     return dict(
-        wall_ms=wall,
-        device_ms=sum(e.self_device_time_total for e in ev) / 1e3 / reps,
-        launches=sum(e.count for e in ev) / reps,
+        wall_ms=wall_ms, device_ms=device_ms, launches=launches,
         port_launches={n: sum(e.count for e in ev if n in e.key) / reps
                        for n in PORT_KERNELS})
 

@@ -5,7 +5,7 @@ The port runs one process on one card. These are the calls that REAL's
 ``after_epoch`` makes, with their single-process meaning: ``gather(x)``
 and ``all_gather(x)`` return ``[x]`` and ``synchronize`` does nothing.
 Under ``WORLD_SIZE`` > 1 every call raises: data parallelism over NCCL
-(ROADMAP.md queue 1 item 6) is not ported, and a silent single-process
+(ROADMAP.md queue 1 item 5) is not ported, and a silent single-process
 run there would train each process on its own.
 """
 
@@ -20,7 +20,7 @@ def _check_single_process():
     if world > 1:
         raise NotImplementedError(
             f"WORLD_SIZE={world}: ao_tpu_torch runs one process; DDP over "
-            f"NCCL is not ported (ROADMAP.md queue 1 item 6)")
+            f"NCCL is not ported (ROADMAP.md queue 1 item 5)")
 
 
 def get_world_size() -> int:

@@ -8,7 +8,33 @@ the card's own time only."""
 
 from __future__ import annotations
 
+import time
+
 import torch
+
+_ACTIVITIES = (torch.profiler.ProfilerActivity.CPU,
+               torch.profiler.ProfilerActivity.CUDA)
+
+
+def trace(fn, reps: int = 1, warmup: int = 1):
+    """(wall ms, device ms, device launches) per call of ``fn`` over ``reps``
+    calls traced with torch.profiler after ``warmup`` untraced ones, then
+    the trace's CUDA kernel rows, heaviest self device time first (kernel
+    rows only: the op rows repeat their kernels' device time)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=list(_ACTIVITIES)) as prof:
+        t = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) * 1e3 / reps
+    events = [e for e in prof.key_averages()
+              if str(e.device_type).endswith("CUDA")]
+    events.sort(key=lambda e: -e.self_device_time_total)
+    return (wall_ms, sum(e.self_device_time_total for e in events) / 1e3 / reps,
+            sum(e.count for e in events) / reps, events)
 
 
 def device_ms(fn, name: str, reps: int = 10, warmup: int = 2) -> float:
@@ -20,11 +46,9 @@ def device_ms(fn, name: str, reps: int = 10, warmup: int = 2) -> float:
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
     seen = set()
     for _ in range(3):
-        with torch.profiler.profile(activities=acts) as prof:
+        with torch.profiler.profile(activities=list(_ACTIVITIES)) as prof:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()

@@ -10,6 +10,12 @@ optax.cosine_onecycle_schedule as ao_tpu calls it, not
 ``torch.optim.lr_scheduler.OneCycleLR``: no momentum cycling, and ao_tpu's
 warmup boundary. The factors are computed in float64; the optax schedules
 evaluate in float32.
+
+With parameter groups (``param_dicts``) each group follows the schedule
+the JAX package builds for it: every group's own lr is its base_lr
+(``LambdaLR`` takes each group's factor against its own initial lr), and
+OneCycleLR's explicit ``max_lr`` peaks every group at that value, as in
+ao_tpu/utils/scheduler.py:85-88 (a group's own lr where it is unset).
 """
 
 from __future__ import annotations
@@ -24,11 +30,12 @@ SCHEDULERS = Registry("schedulers")
 
 
 def _lambda(optimizer, lr_at):
-    """A LambdaLR whose lr at step k is ``lr_at(k)`` (lr_at(0) may differ
-    from the optimizer's lr: the factor is taken against it)."""
-    base = optimizer.param_groups[0]["lr"]
-    return torch.optim.lr_scheduler.LambdaLR(
-        optimizer, lambda k: lr_at(k) / base)
+    """A LambdaLR whose lr at step k is ``lr_at(k, base)`` in each group,
+    base the group's own lr (lr_at(0, base) may differ from it: the factor
+    is taken against it)."""
+    return torch.optim.lr_scheduler.LambdaLR(optimizer, [
+        lambda k, base=g["lr"]: lr_at(k, base) / base
+        for g in optimizer.param_groups])
 
 
 @SCHEDULERS.register_module()
@@ -76,8 +83,7 @@ def ExpLR(optimizer, total_steps, gamma=0.9):
 
 @SCHEDULERS.register_module()
 def CosineAnnealingLR(optimizer, total_steps, eta_min=0.0):
-    base = optimizer.param_groups[0]["lr"]
-    return _lambda(optimizer, lambda k: eta_min + (base - eta_min) * (
+    return _lambda(optimizer, lambda k, base: eta_min + (base - eta_min) * (
         1 + math.cos(math.pi * k / total_steps)) / 2)
 
 
@@ -111,12 +117,11 @@ def OneCycleLR(optimizer, total_steps, max_lr=None, pct_start=0.3,
                **_unused):
     if anneal_strategy != "cos":
         raise ValueError("OneCycleLR: only anneal_strategy='cos' is ported")
-    if max_lr is None:
-        max_lr = optimizer.param_groups[0]["lr"]
     if isinstance(max_lr, (list, tuple)):
         max_lr = max_lr[0]
-    return _lambda(optimizer, lambda k: onecycle_lr(
-        k, total_steps, max_lr, pct_start, div_factor, final_div_factor))
+    return _lambda(optimizer, lambda k, base: onecycle_lr(
+        k, total_steps, base if max_lr is None else max_lr, pct_start,
+        div_factor, final_div_factor))
 
 
 def build_scheduler(cfg: dict, optimizer, total_steps: int):

@@ -10,8 +10,9 @@ configs/semantic_kitti/semseg-pt-v2m2-0-base.py, PT-v2m1 at that of
 configs/s3dis/semseg-pt-v2m1-0-base.py, the sparse-convolution U-Nets
 at those of their ScanNet SpUNet, S3DIS MinkUNet34C and SemanticKITTI
 SPVCNN configs, the SpUNet task heads (CAC, PointGroup, MSC) at those
-of their ScanNet and S3DIS configs, and PT-v1 (Seg50, Cls26, PartSeg50)
-at those of its S3DIS and ModelNet40 configs.
+of their ScanNet and S3DIS configs, PT-v1 (Seg50, Cls26, PartSeg50) at
+those of its S3DIS and ModelNet40 configs, and Swin3D-v1m1 at those of
+its ScanNet small and large configs.
 
 1. Prints the card (nvidia-smi name and power limit), the torch and CUDA
    versions, and builds the kernels (one nvcc process per csrc/*.cu
@@ -160,9 +161,9 @@ at those of its S3DIS and ModelNet40 configs.
    must make proposals and score AP50 1; the host seconds of clustering
    and of the AP table printed); the S3DIS config 3 steps at B=12. MSC:
    configs/scannet/pretrain-msc-v1m1-0-spunet-base.py through
-   ao_tpu_torch.tools.train_pretrain at its B=32 or, where that does not
-   fit (the peak reached printed), the next of 16, 12, 8, 7, 6, 4, 2 that
-   does: 3 steps with the NCE, colour and normal losses finite and matched
+   ao_tpu_torch.tools.train_pretrain at the first of B = 8, 7, 6, 4, 2
+   that fits (the config's 32, 16 and 12 do not on an 80 GB card; the peak
+   reached printed): 3 steps with the NCE, colour and normal losses finite and matched
    pairs on every step, and the matching kNN timed on one of its batches;
    then one step of pretrain-msc-v1m2-0-spunet-csc.py at that batch. Each run prints its step seconds, data wait and peak
    memory. ``--heads`` runs this phase alone, on data made for it.
@@ -189,15 +190,30 @@ at those of its S3DIS and ModelNet40 configs.
    no GridSample). PartSeg50 with the PartSegTester on two shapes in
    ShapeNetPart's layout (a config built here: two scaled views).
    ``--ptv1`` runs this phase alone, on data made for it.
+13. Swin3D phase: configs/scannet/semseg-swin3d-v1m1-0-small.py as written
+   (f32, AdamW with the cRSE tables in their param_dicts group, OneCycle,
+   Mix3D) on phase 7's rooms: one train step at the first of B = 12, 8,
+   6, 4, 3, 2 that fits unmixed (Mix3D's worst case; the peak reached
+   printed for each that does not) with its K1 and K2 calls (the decoder's 2-probe k=3 interpolation
+   search at four levels) captured and held, 3 counted steps at that
+   batch (losses finite, parameters moved, both groups' lr OneCycle's,
+   each stage's occupied window rows against num_windows and the points
+   dropped beyond num_windows and beyond the capacity, step seconds, data
+   wait, peak memory), one more traced with torch.profiler (device time by
+   kernel, the downsampling's exact kNN's share); one step of
+   semseg-swin3d-v1m1-1-large.py at the first of B
+   = 4, 2, 1 that fits unmixed; whole-scene testing of the ScanNet room with the
+   config's 10 views (the first fragments' K1 / K2 calls held).
+   ``--swin3d`` runs this phase alone, on data made for it.
 
 Each main path (the slice phase, the train phase, the REAL run, the
-ScanNet test and train runs, every train and test run of phases 8-12)
+ScanNet test and train runs, every train and test run of phases 8-13)
 runs with every kernel's launch count set to 0 just before it and read
 just after, and fails if one of its kernels never launched. The last
 three lines are the card, the kernels' JSON record (one entry per kernel,
 then one per new instance of the ScanNet config, then one per kernel of
-the outdoor, PT-v2m1, sparse, CAC and PT-v1 paths at its heaviest shape
-there, then FPS) and {"ok": true, "device": {...}}.
+the outdoor, PT-v2m1, sparse, CAC, PT-v1 and Swin3D paths at its heaviest
+shape there, then FPS) and {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -1004,18 +1020,11 @@ def profile_forward(model, batch, device):
     name and the device's busy share of the forward."""
     _, coord, feat, mask = batch
     c, f, m = coord.to(device), feat.to(device), mask.to(device)
+    from ao_tpu_torch.utils.devtime import trace
+
     with torch.inference_mode():
         wall_ms = cuda_ms(lambda: model(c, f, m), reps=3, warmup=1)
-        acts = [torch.profiler.ProfilerActivity.CPU,
-                torch.profiler.ProfilerActivity.CUDA]
-        with torch.profiler.profile(activities=acts) as prof:
-            model(c, f, m)
-            torch.cuda.synchronize()
-    # kernel rows only (op rows repeat their kernels' device time)
-    events = [e for e in prof.key_averages()
-              if str(e.device_type).endswith("CUDA")]
-    events.sort(key=lambda e: -e.self_device_time_total)
-    device_ms = sum(e.self_device_time_total for e in events) / 1e3
+        _, device_ms, _, events = trace(lambda: model(c, f, m), warmup=0)
     top = [dict(name=e.key[:60], ms=e.self_device_time_total / 1e3,
                 calls=e.count) for e in events[:12]]
     return dict(shape=list(mask.shape), points=int(mask.sum()),
@@ -1122,31 +1131,85 @@ def check_val(trainer):
     return val
 
 
-def profile_train_step(trainer, batch):
-    """Time one train step (host clock around a synchronised step), then
-    trace one with torch.profiler: device time by kernel name and the
-    device's busy share of the step."""
-    trainer.train_step(batch)
+class KnnTimer:
+    """CUDA events around every exact-kNN call of a model's module (PT-v1's
+    layers' knn_query and TransitionDown's knn, Swin3D's downsampling knn),
+    each noted as chunked or not (above ``CHUNK_ELEMENTS`` scores
+    ops/knn.py takes its chunks of torch.topk); ``ms()`` reads (all,
+    chunked) ms after a synchronize."""
+
+    def __init__(self, module):
+        self.module = module
+
+    def __enter__(self):
+        import importlib
+
+        self.calls = []
+        scores = {"knn": lambda q, k, *a: q.shape[0] * q.shape[1] * k.shape[1],
+                  "knn_query": lambda k, c, *a: c.shape[0] * c.shape[1] ** 2}
+        self._orig = {n: getattr(self.module, n) for n in scores
+                      if hasattr(self.module, n)}
+        chunk = importlib.import_module("ao_tpu_torch.ops.knn").CHUNK_ELEMENTS
+
+        def timed(fn, count):
+            def call(*args):
+                s = torch.cuda.Event(enable_timing=True)
+                e = torch.cuda.Event(enable_timing=True)
+                s.record()
+                out = fn(*args)
+                e.record()
+                self.calls.append((s, e, count(*args) > chunk))
+                return out
+            return call
+
+        for n, fn in self._orig.items():
+            setattr(self.module, n, timed(fn, scores[n]))
+        return self
+
+    def __exit__(self, *exc):
+        for n, fn in self._orig.items():
+            setattr(self.module, n, fn)
+
+    def ms(self):
+        torch.cuda.synchronize()
+        t = [(s.elapsed_time(e), c) for s, e, c in self.calls]
+        return sum(x for x, _ in t), sum(x for x, c in t if c)
+
+
+def profile_train_step(trainer, batch, knn=None, warm=True, traced=True):
+    """Time one train step (host clock around a synchronised step, after a
+    warm one unless ``warm`` is off: a trainer that has just stepped at
+    these shapes), then trace one with torch.profiler unless ``traced`` is
+    off: device time by kernel name and the device's busy share of the
+    step. With ``knn``, a model's module, the timed step runs under
+    :class:`KnnTimer` on it: the exact kNN's calls, ms and share of the
+    step."""
+    from ao_tpu_torch.utils.devtime import trace
+
+    if warm:
+        trainer.train_step(batch)
     torch.cuda.synchronize()
-    t = time.perf_counter()
-    trainer.train_step(batch)
-    torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t) * 1e3
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
+    with KnnTimer(knn) as timer:
+        t = time.perf_counter()
         trainer.train_step(batch)
         torch.cuda.synchronize()
-    events = [e for e in prof.key_averages()
-              if str(e.device_type).endswith("CUDA")]
-    events.sort(key=lambda e: -e.self_device_time_total)
-    device_ms = sum(e.self_device_time_total for e in events) / 1e3
-    top = [dict(name=e.key[:60], ms=e.self_device_time_total / 1e3,
-                calls=e.count) for e in events[:15]]
-    return dict(shape=list(batch["mask"].shape),
-                points=int(batch["mask"].sum()), wall_ms=wall_ms,
-                device_ms=device_ms, busy_share=device_ms / wall_ms, top=top,
-                port_kernels=_by_kernel(events))
+        wall_ms = (time.perf_counter() - t) * 1e3
+    rec = dict(shape=list(batch["mask"].shape),
+               points=int(batch["mask"].sum()), wall_ms=wall_ms)
+    if traced:
+        _, device_ms, _, events = trace(lambda: trainer.train_step(batch),
+                                        warmup=0)
+        rec.update(device_ms=device_ms, busy_share=device_ms / wall_ms,
+                   top=[dict(name=e.key[:60], ms=e.self_device_time_total / 1e3,
+                             calls=e.count) for e in events[:15]],
+                   port_kernels=_by_kernel(events))
+    if knn is not None:
+        knn_ms, chunked_ms = timer.ms()
+        rec.update(knn_calls=len(timer.calls),
+                   chunked_calls=sum(c for *_, c in timer.calls),
+                   knn_ms=knn_ms, chunked_ms=chunked_ms,
+                   share=knn_ms / wall_ms, chunked_share=chunked_ms / wall_ms)
+    return rec
 
 
 # ---------------------------------------------------------------------------
@@ -2480,8 +2543,10 @@ CAC_TERMS = ("seg_loss", "pre_loss", "pre_self_loss", "kl_loss")
 # flax Dense takes the 6 it is given, the port's Linear is built for
 # in_channels, so the run sets the 6 the data gives (ROADMAP.md section 3)
 CAC_PTV2_IN = ("model.backbone.in_channels=6",)
-# MSC's batches, tried in turn from the config's own 32 until one fits
-MSC_BATCHES = (32, 16, 12, 8, 7, 6, 4, 2)
+# MSC's batches, tried in turn until one fits: the config's own 32, 16 and
+# 12 ran out of memory on an 80 GB card in every full run (B=7 fits), so
+# the ladder starts at 8 to keep the script inside its time limit
+MSC_BATCHES = (8, 7, 6, 4, 2)
 
 
 def check_terms(record, terms, label):
@@ -2570,8 +2635,8 @@ def heads_phase(device, seed, t0, card="", scannet_dir=None, s3dis_rooms=None,
     ao_tpu_torch.tools.train_insseg, whose cut epoch ends with the
     InsSegEvaluator on the val room (:func:`check_insseg`), and PointGroup
     S3DIS at B=12; MSC-v1m1 through ao_tpu_torch.tools.train_pretrain at
-    the first of :data:`MSC_BATCHES` that fits (the config's 32 first; each
-    that does not prints the peak reached), then one MSC-v1m2 (CSC) step at
+    the first of :data:`MSC_BATCHES` that fits (each that does not prints
+    the peak reached), then one MSC-v1m2 (CSC) step at
     that batch. Every run: losses (CAC's four terms, PointGroup's three,
     MSC's NCE, colour and normal) finite, matched pairs > 0 each MSC step,
     parameters moved, the schedule's lr, step seconds, data wait, peak
@@ -2899,73 +2964,6 @@ def voxel_sites(batch):
             for b in range(dc.shape[0])]
 
 
-class KnnTimer:
-    """CUDA events around every exact-kNN call of PT-v1 (its layers'
-    knn_query and TransitionDown's knn), each noted as chunked or not
-    (above ``CHUNK_ELEMENTS`` scores ops/knn.py takes its chunks of
-    torch.topk); ``ms()`` reads (all, chunked) ms after a synchronize."""
-
-    def __enter__(self):
-        import importlib
-
-        from ao_tpu_torch.models.point_transformer import ptv1
-
-        self.calls = []
-        self._orig = {n: getattr(ptv1, n) for n in ("knn", "knn_query")}
-        chunk = importlib.import_module("ao_tpu_torch.ops.knn").CHUNK_ELEMENTS
-
-        def timed(fn, scores):
-            def call(*args):
-                s = torch.cuda.Event(enable_timing=True)
-                e = torch.cuda.Event(enable_timing=True)
-                s.record()
-                out = fn(*args)
-                e.record()
-                self.calls.append((s, e, scores(*args) > chunk))
-                return out
-            return call
-
-        ptv1.knn = timed(self._orig["knn"], lambda q, k, *a: (
-            q.shape[0] * q.shape[1] * k.shape[1]))
-        ptv1.knn_query = timed(self._orig["knn_query"], lambda k, c, *a: (
-            c.shape[0] * c.shape[1] ** 2))
-        return self
-
-    def __exit__(self, *exc):
-        from ao_tpu_torch.models.point_transformer import ptv1
-
-        for n, fn in self._orig.items():
-            setattr(ptv1, n, fn)
-
-    def ms(self):
-        torch.cuda.synchronize()
-        t = [(s.elapsed_time(e), c) for s, e, c in self.calls]
-        return sum(x for x, _ in t), sum(x for x, c in t if c)
-
-
-def time_ptv1_knn(trainer, card):
-    """One more train step of the Seg50 trainer on a batch of its loader with
-    :class:`KnnTimer` on: its seconds (host clock, ending in a
-    synchronize), the kNN ms in it and their share."""
-    batch = next(iter(trainer.train_loader))
-    torch.cuda.synchronize()
-    with KnnTimer() as timer:
-        t = time.perf_counter()
-        m = trainer.train_step(batch)
-        float(m["loss"])
-        torch.cuda.synchronize()
-        step_ms = (time.perf_counter() - t) * 1e3
-    knn_ms, chunked_ms = timer.ms()
-    rec = dict(step_ms=step_ms, knn_ms=knn_ms, chunked_ms=chunked_ms,
-               calls=len(timer.calls), chunked_calls=sum(c for *_, c in timer.calls),
-               share=knn_ms / step_ms, chunked_share=chunked_ms / step_ms)
-    print(f"ptv1 seg50 kNN: {rec['calls']} calls ({rec['chunked_calls']} chunked) "
-          f"take {knn_ms:.1f} ms of a {step_ms:.1f} ms step (share "
-          f"{rec['share']:.3f}; chunked {chunked_ms:.1f} ms, "
-          f"{rec['chunked_share']:.3f}); card {card}", flush=True)
-    return rec
-
-
 def fps_cases(device, seed=0):
     """FPS inputs beside the path's own: a padded batch (a full scene and
     scenes of 12000 and 3 valid points in 16384 rows) and integer-grid
@@ -2992,8 +2990,8 @@ def ptv1_phase(device, seed, t0, card="", rooms=None, test_room=None, steps=3):
     written with their loop: one train step at the first of
     :data:`PTV1_BATCHES` that fits (each that does not prints the peak
     reached) with its K1, K2 and FPS calls captured and held, then
-    ``steps`` counted steps at that batch, one more timed for its exact
-    kNN (:func:`time_ptv1_knn`), and whole-scene testing of ``test_room``
+    ``steps`` counted steps at that batch, one more timed for the exact
+    kNN's share (:func:`profile_train_step`), and whole-scene testing of ``test_room``
     (the slice phase's) with the config's views, the kernel calls of its
     first fragment batch held. Then ModelNet40 shapes
     made here (:func:`modelnet_setup`: 40 classes, one train and one test
@@ -3008,6 +3006,7 @@ def ptv1_phase(device, seed, t0, card="", rooms=None, test_room=None, steps=3):
     import gc
 
     from ao_tpu_torch.models import build_model
+    from ao_tpu_torch.models.point_transformer import ptv1
     from ao_tpu_torch.tools.test import main as test_main
     from ao_tpu_torch.utils import Config
 
@@ -3058,7 +3057,11 @@ def ptv1_phase(device, seed, t0, card="", rooms=None, test_room=None, steps=3):
         f"s3dis ptv1 seg50 train B={batch}", PTV1_CONFIG, device,
         opts(batch, steps, "seg50"), steps, PTV1_KERNELS, multistep_of, card,
         keep=True)
-    records["seg50_knn"] = time_ptv1_knn(trainer, card)
+    records["seg50_knn"] = profile_train_step(
+        trainer, next(iter(trainer.train_loader)), ptv1, warm=False,
+        traced=False)
+    print(json.dumps({"ptv1_seg50_step_profile": dict(
+        records["seg50_knn"], card=card)}), flush=True)
     del trainer
     gc.collect()
     torch.cuda.empty_cache()
@@ -3147,6 +3150,195 @@ def ptv1_phase(device, seed, t0, card="", rooms=None, test_room=None, steps=3):
           f"{res['cat_mIoU']:.4f} (random weights, 2 shapes, 2 views); launches "
           f"{launches['partseg_test']}; card {card}", flush=True)
     log(t0, f"PT-v1 phase done in {time.perf_counter() - t_phase:.1f} s")
+    return rows, launches, records
+
+
+# ---------------------------------------------------------------------------
+# phase 13: Swin3D-v1m1 (cRSE window attention over occupied windows)
+# ---------------------------------------------------------------------------
+
+SWIN3D_CONFIG = os.path.join(ROOT, "configs", "scannet",
+                             "semseg-swin3d-v1m1-0-small.py")
+SWIN3D_LARGE_CONFIG = os.path.join(ROOT, "configs", "scannet",
+                                   "semseg-swin3d-v1m1-1-large.py")
+# the batches tried in turn until one fits: the small config's from its own
+# 12, the large config's (one step)
+SWIN3D_BATCHES = (12, 8, 6, 4, 3, 2)
+SWIN3D_LARGE_BATCHES = (4, 2, 1)
+# the kernels of the Swin3D paths: the decoder's 3-NN interpolation above
+# 2M query x key pairs (2-probe curve search: K1, then K2's fused merge)
+SWIN3D_KERNELS = ("knn_window", "merge_topk")
+
+
+class SwinSteps:
+    """While active, keeps after every train step each block's window
+    statistics (stage, block, occupied rows, rows, points dropped beyond
+    num_windows, points dropped beyond the capacity) and, from before the
+    step, each parameter group's lr."""
+
+    def __enter__(self):
+        from ao_tpu_torch.engines.train import Trainer
+
+        self.stats, self.lrs = [], []
+        self._orig = Trainer._step
+
+        def step(trainer, batch):
+            self.lrs.append([g["lr"] for g in trainer.optimizer.param_groups])
+            out = self._orig(trainer, batch)
+            self.stats.append([tuple(int(x) for x in st)
+                               for st in trainer.model.backbone.window_stats])
+            return out
+
+        Trainer._step = step
+        return self
+
+    def __exit__(self, *exc):
+        from ao_tpu_torch.engines.train import Trainer
+
+        Trainer._step = self._orig
+
+
+def window_summary(stats):
+    """Per stage: (occupied rows, rows, dropped beyond num_windows, dropped
+    beyond the capacity) of each block of one step's statistics."""
+    out = {}
+    for s, _, rows, cap, by_rows, by_cap in stats:
+        out.setdefault(s, []).append((rows, cap, by_rows, by_cap))
+    return out
+
+
+def swin3d_phase(device, seed, t0, card="", scannet_dir=None, steps=3):
+    """Phase 13: configs/scannet/semseg-swin3d-v1m1-0-small.py as written
+    (f32, AdamW with the tables' param_dicts group, OneCycle, Mix3D) on the
+    ScanNet phase's rooms (written under ``scannet_dir``; made here where
+    None): one train step at the first of :data:`SWIN3D_BATCHES` that fits
+    unmixed (mix_prob 0: every scene at max_points, Mix3D's worst case; each
+    batch that does not fit prints the peak reached) with its K1 and K2
+    calls captured and held against their plain versions, ``steps``
+    counted steps at that batch as written (losses finite, parameters moved, OneCycle's lr in both
+    groups, the windows each stage occupies and drops, step seconds, data
+    wait, peak memory), one more timed for the share of the downsampling's
+    exact kNN and one traced for device time by kernel
+    (:func:`profile_train_step`); the
+    large config's one step at the first of
+    :data:`SWIN3D_LARGE_BATCHES` that fits unmixed; whole-scene testing of the
+    ScanNet room with the config's 10 views, the kernel calls of its first
+    fragments held. Returns (kernel rows, launches by path, records)."""
+    import gc
+
+    from ao_tpu_torch.models import build_model
+    from ao_tpu_torch.models.swin3d import swin3d
+    from ao_tpu_torch.tools.test import main as test_main
+    from ao_tpu_torch.utils import Config
+
+    t_phase = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="ao_chip_swin3d_")
+    if scannet_dir is None:
+        scannet_dir, _ = scannet_setup(
+            [make_scannet_room(s_, size) for s_, size in SCANNET_ROOMS],
+            make_scannet_room(*SCANNET_TEST_ROOM), workdir=work)
+    sc_root = os.path.join(scannet_dir, "scannet")
+    n_sc = len(os.listdir(os.path.join(sc_root, "train")))
+    launches, records = {}, {}
+
+    def opts(batch, n_steps, name):
+        return sparse_options(sc_root, n_sc, batch, n_steps,
+                              os.path.join(work, name), seed)
+
+    def ladder(batches, label, fn):
+        for batch in batches:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            try:
+                return batch, fn(batch)
+            except torch.cuda.OutOfMemoryError as e:
+                print(f"{label} B={batch}: out of memory, peak reached "
+                      f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB ("
+                      f"{str(e).splitlines()[0][:160]}); card {card}", flush=True)
+                del e
+                gc.collect()
+        raise RuntimeError(f"{label} fits none of the batches {batches}")
+
+    # a batch fits when its step fits unmixed: Mix3D merges pairs of
+    # scenes into one of at most max_points, so a mixed step holds fewer
+    batch, rows = ladder(SWIN3D_BATCHES, "scannet swin3d train unmixed", lambda b: (
+        capture_step(SWIN3D_CONFIG, opts(b, 1, f"kernels_b{b}") + ["mix_prob=0"],
+                     device, SWIN3D_KERNELS, t0, f"Swin3D train step B={b}")))
+    print(f"scannet swin3d: B={batch} fits unmixed; captured step peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; card {card}",
+          flush=True)
+    torch.cuda.empty_cache()
+    with SwinSteps() as seen:
+        launches["train"], records["train"], trainer = train_run(
+            f"scannet swin3d train B={batch} (as written)", SWIN3D_CONFIG, device,
+            opts(batch, steps, "train"), steps, SWIN3D_KERNELS, onecycle_of, card,
+            keep=True)
+    groups = trainer.optimizer.param_groups
+    n_tables = sum("table" in n for n, _ in trainer.model.named_parameters())
+    if len(groups) != 2 or len(groups[1]["params"]) != n_tables:
+        raise RuntimeError("the config's param_dicts did not group the tables")
+    for i, (default, table) in enumerate(seen.lrs):
+        if abs(table - default) > 1e-12 * default:
+            raise RuntimeError(f"step {i}: the table group's lr {table} is not "
+                               f"the default group's {default}")
+    print(f"scannet swin3d param_dicts: {n_tables} tables in their group (lr "
+          f"{trainer.cfg.param_dicts[0].lr} as configured); lr per step (default"
+          f", tables) {seen.lrs} (OneCycle's max_lr peaks both); card {card}",
+          flush=True)
+    records["train"]["windows"] = [window_summary(st) for st in seen.stats]
+    for s, blocks in window_summary(seen.stats[-1]).items():
+        print(f"scannet swin3d stage {s} (last step, per block): occupied rows "
+              f"{[b[0] for b in blocks]} of {blocks[0][1]}; points dropped beyond "
+              f"num_windows {[b[2] for b in blocks]}, beyond the capacity "
+              f"{[b[3] for b in blocks]}", flush=True)
+    records["trace"] = profile_train_step(
+        trainer, next(iter(trainer.train_loader)), swin3d, warm=False)
+    print(json.dumps({"scannet_swin3d_step_profile": dict(
+        records["trace"], card=card)}), flush=True)
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(t0, "Swin3D train done")
+
+    large, (launches["large_train"], records["large_train"]) = ladder(
+        SWIN3D_LARGE_BATCHES, "scannet swin3d large train unmixed",
+        lambda b: train_run(
+            f"scannet swin3d large train B={b} (unmixed)", SWIN3D_LARGE_CONFIG,
+            device, opts(b, 1, f"large_b{b}") + ["mix_prob=0"], 1,
+            SWIN3D_KERNELS, onecycle_of, card))
+    print(f"scannet swin3d large: B={large} fits unmixed; peak memory "
+          f"{records['large_train']['peak_gib']:.2f} GiB, step "
+          f"{records['large_train']['step_seconds'][0]:.4f} s; card {card}",
+          flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(t0, "Swin3D large step done")
+
+    cfg = Config.fromfile(SWIN3D_CONFIG)
+    torch.manual_seed(seed)
+    weight = os.path.join(work, "swin3d.pt")
+    torch.save(build_model(dict(cfg.model)).state_dict(), weight)
+    (result, launches["test"]), held_rows = held(
+        SWIN3D_KERNELS, "Swin3D scene test", lambda: _drive(
+            SWIN3D_KERNELS, lambda: test_main([
+                "--config-file", SWIN3D_CONFIG, "--device", str(device),
+                "--options", f"weight={weight}",
+                f"save_path={os.path.join(work, 'test')}",
+                f"data.test.data_root={sc_root}"])),
+        limit={"knn_window": 4, "merge_topk": 4})
+    rows += held_rows
+    names = sorted(os.listdir(os.path.join(sc_root, "val")))
+    votes = np.load(os.path.join(work, "test", "result",
+                                 names[0].replace(".pth", "_pred.npy")))
+    check_votes(votes, len(cfg.data.test.test_cfg.aug_transform), num_classes=20)
+    scene = result["scenes"][0]
+    records["test"] = scene
+    print(f"scannet swin3d test: {scene['fragments']} fragments in batches "
+          f"(B, N) {scene['batches']}; scene {scene['seconds']:.2f} s; votes "
+          f"{votes.shape}; mIoU {result['mIoU']:.4f} (random weights); launches "
+          f"{launches['test']}; card {card}", flush=True)
+    torch.cuda.empty_cache()
+    log(t0, f"Swin3D phase done in {time.perf_counter() - t_phase:.1f} s")
     return rows, launches, records
 
 
@@ -3376,6 +3568,7 @@ def run(device, seed, t0, room_size=(4.8, 4.0, 2.6), train_steps=5, card="",
                                            kitti_dir, workdir)
     hd_rows, hd_launches, _ = heads_phase(device, seed, t0, card, sc_dir, rooms)
     v1_rows, v1_launches, _ = ptv1_phase(device, seed, t0, card, rooms, room)
+    sw_rows, sw_launches, _ = swin3d_phase(device, seed, t0, card, sc_dir)
 
     # one entry per kernel: its heaviest captured shape of the S3DIS paths
     kernels = []
@@ -3415,14 +3608,15 @@ def run(device, seed, t0, room_size=(4.8, 4.0, 2.6), train_steps=5, card="",
             bound_ms=row["bound_ms"], bound_by=row["bound_by"],
             library_ms=row["library_ms"],
             shape=f"{row['phase']}: {row['shape']}"))
-    # and one per kernel of the outdoor, PT-v2m1, sparse and CAC paths, at
-    # its heaviest shape there, with the launches of those paths (of the
-    # heads' paths, CAC on PT-v2m2's: the others launch none)
+    # and one per kernel of the outdoor, PT-v2m1, sparse, CAC, PT-v1 and
+    # Swin3D paths, at its heaviest shape there, with the launches of those
+    # paths (of the heads' paths, CAC on PT-v2m2's: the others launch none)
     for tag, phase_rows, paths in (
             ("outdoor", out_rows, out_launches), ("ptv2m1", m1_rows, m1_launches),
             ("sparse", sp_rows, sp_launches),
             ("cac", hd_rows, {"cac_ptv2_train": hd_launches["cac_ptv2_train"]}),
-            ("ptv1", [r for r in v1_rows if r["name"] != "fps"], v1_launches)):
+            ("ptv1", [r for r in v1_rows if r["name"] != "fps"], v1_launches),
+            ("swin3d", sw_rows, sw_launches)):
         for name in sorted({r["name"] for r in phase_rows}):
             row = max((r for r in phase_rows if r["name"] == name),
                       key=lambda r: r["bound_ms"])
@@ -3495,12 +3689,16 @@ def main():
         "--ptv1", action="store_true",
         help="run only phase 12 (PT-v1 Seg50, the ModelNet40 configs and "
              "PartSeg50, on data made for it), and no kernel record")
+    parser.add_argument(
+        "--swin3d", action="store_true",
+        help="run only phase 13 (the ScanNet Swin3D configs, on rooms made for "
+             "it), and no kernel record")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA card (torch.cuda.is_available() is "
               "False)", file=sys.stderr)
         return 2
-    # a healthy run takes about eight minutes: a hang becomes a traceback
+    # a healthy run takes 11-15 minutes: a hang becomes a traceback
     # and a non-zero exit inside the caller's 1200 s
     faulthandler.dump_traceback_later(1020, exit=True)
     t0 = time.perf_counter()
@@ -3531,8 +3729,10 @@ def main():
         heads_phase(torch.device("cuda"), args.seed, t0, card)
     if args.ptv1:
         ptv1_phase(torch.device("cuda"), args.seed, t0, card)
+    if args.swin3d:
+        swin3d_phase(torch.device("cuda"), args.seed, t0, card)
     if (args.scannet_batch is not None or args.outdoor_batch is not None
-            or args.sparse or args.heads or args.ptv1):
+            or args.sparse or args.heads or args.ptv1 or args.swin3d):
         faulthandler.cancel_dump_traceback_later()
         print(f"card: {card}", flush=True)
         return 0

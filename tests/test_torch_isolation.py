@@ -14,9 +14,11 @@ sparse-convolution config and every CAC, PointGroup and MSC config
 (building its model) loads through the port's Config without importing
 ao_tpu (the ScanNet200 configs' own import of ao_tpu's class names is
 served from the port's copy), the heads' entry points run, the port's
-clustering library leaves native/ untouched, and the PT-v1 and ModelNet40
+clustering library leaves native/ untouched, the PT-v1 and ModelNet40
 configs load and build, with a classification step, its tester and the
-part-segmentation tester run."""
+part-segmentation tester run, and every config but the four of the
+backbones not ported yet builds its model (the Swin3D ones their
+datasets)."""
 
 import os
 import re
@@ -321,6 +323,69 @@ def test_ptv1_and_modelnet_configs_without_ao_tpu():
         "DefaultSegmentor/PointTransformer-Cls26", "DefaultClassifier/SpUNet-v1m1"]
 
 
+_ALL_CONFIGS = r"""
+import glob, sys
+for name in ("jax", "ao_tpu", "flax", "optax"):
+    sys.modules[name] = None
+import torch
+from ao_tpu_torch.datasets import build_dataset
+from ao_tpu_torch.models import build_model
+from ao_tpu_torch.utils import Config
+files = sorted(f for f in glob.glob("configs/*/*.py") if "/_base_/" not in f)
+built, refused = [], []
+for f in files:
+    cfg = Config.fromfile(f)
+    try:
+        with torch.device("meta"):
+            build_model(dict(cfg.model))
+        built.append(f)
+    except KeyError as e:
+        assert "is not registered" in str(e), (f, e)
+        refused.append(cfg.model.get("backbone", cfg.model).type)
+swin = [f for f in files if "swin3d" in f]
+for f in swin:
+    cfg = Config.fromfile(f)
+    for split in ("train", "val", "test"):
+        build_dataset(dict(cfg.data[split], data_root="/nonexistent"))
+    bb = cfg.model.backbone
+    feat_keys = next(t for t in cfg.data.train.transform
+                     if t["type"] == "Collect")["feat_keys"]
+    print("SWIN", f, bb.in_channels, "+".join(feat_keys), bb.normal_channels)
+assert not any(k == "jax" or k.startswith(("jax.", "ao_tpu.", "flax", "optax"))
+               for k, v in sys.modules.items() if v is not None)
+print("ALL", len(files), len(built), " ".join(sorted(refused)))
+"""
+
+
+def test_every_config_but_four_builds_without_ao_tpu():
+    """With jax and ao_tpu unimportable, every config under configs/ (81,
+    _base_ aside) loads through the port's Config and 77 build their model
+    on the meta device; the 4 the port refuses are the ST-v1m1 / ST-v1m2
+    (3) and OctFormer-v1m1 (1) ones, whose backbones are not registered.
+    The six Swin3D configs also build their train, val and test datasets
+    (transforms, the test views): S3DIS with in_channels 9 and (coord,
+    color, normal) features, ScanNet and Structured3D with 6 and (color,
+    normal), normals at channels 3:6."""
+    env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="1")
+    res = subprocess.run(
+        [sys.executable, "-c", _ALL_CONFIGS], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=240,
+    )
+    assert res.returncode == 0, res.stderr[-4000:]
+    n, n_built, *refused = res.stdout.split("ALL")[1].split()
+    assert (int(n), int(n_built)) == (81, 77)
+    assert refused == ["OctFormer-v1m1", "ST-v1m1", "ST-v1m2", "ST-v1m2"]
+    swin = [line.split()[1:] for line in res.stdout.splitlines()
+            if line.startswith("SWIN")]
+    assert len(swin) == 6
+    for f, in_channels, feat_keys, *normal in swin:
+        if f.startswith("configs/s3dis"):
+            assert (in_channels, feat_keys) == ("9", "coord+color+normal")
+        else:
+            assert (in_channels, feat_keys, normal) == (
+                "6", "color+normal", ["(3,", "6)"])
+
+
 def test_port_sources_name_no_jax_no_ao_tpu_no_cpp_extension():
     files = [os.path.join(ROOT, "chip_smoke.py")]
     for d, _, names in os.walk(os.path.join(ROOT, "ao_tpu_torch")):
@@ -359,7 +424,8 @@ def test_port_sources_name_no_jax_no_ao_tpu_no_cpp_extension():
                 "datasets/synthetic.py", "ops/knn.py", "ops/sampling.py",
                 "csrc/fps.cu", "models/point_transformer/ptv1.py",
                 "models/point_transformer/convert.py", "datasets/modelnet.py",
-                "engines/hooks/evaluator.py"):
+                "engines/hooks/evaluator.py", "ops/window_partition.py",
+                "models/swin3d/swin3d.py", "models/swin3d/convert.py"):
         assert f"ao_tpu_torch/{mod}" in names
     # the one place that names an ao_tpu module: the module name that the
     # config loader serves from the port's copy (a sys.modules key, never

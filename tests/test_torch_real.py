@@ -197,5 +197,5 @@ def test_comm_single_process(monkeypatch):
     monkeypatch.setenv("WORLD_SIZE", "2")
     for fn in (comm.get_world_size, comm.synchronize,
                lambda: comm.gather(1), lambda: comm.all_gather(1)):
-        with pytest.raises(NotImplementedError, match="queue 1 item 6"):
+        with pytest.raises(NotImplementedError, match="queue 1 item 5"):
             fn()
