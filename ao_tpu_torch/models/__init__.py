@@ -8,3 +8,5 @@ from .context_aware_classifier import cac  # noqa: F401
 from .point_group import point_group  # noqa: F401
 from .masked_scene_contrast import msc  # noqa: F401
 from . import swin3d  # noqa: F401
+from .stratified_transformer import stratified  # noqa: F401
+from .octformer import octformer  # noqa: F401

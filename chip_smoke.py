@@ -11,8 +11,9 @@ configs/s3dis/semseg-pt-v2m1-0-base.py, the sparse-convolution U-Nets
 at those of their ScanNet SpUNet, S3DIS MinkUNet34C and SemanticKITTI
 SPVCNN configs, the SpUNet task heads (CAC, PointGroup, MSC) at those
 of their ScanNet and S3DIS configs, PT-v1 (Seg50, Cls26, PartSeg50) at
-those of its S3DIS and ModelNet40 configs, and Swin3D-v1m1 at those of
-its ScanNet small and large configs.
+those of its S3DIS and ModelNet40 configs, Swin3D-v1m1 at those of its
+ScanNet small and large configs, and the Stratified Transformer (ST-v1m1,
+ST-v1m2) and OctFormer-v1m1 at those of their ScanNet configs.
 
 1. Prints the card (nvidia-smi name and power limit), the torch and CUDA
    versions, and builds the kernels (one nvcc process per csrc/*.cu
@@ -161,9 +162,10 @@ its ScanNet small and large configs.
    must make proposals and score AP50 1; the host seconds of clustering
    and of the AP table printed); the S3DIS config 3 steps at B=12. MSC:
    configs/scannet/pretrain-msc-v1m1-0-spunet-base.py through
-   ao_tpu_torch.tools.train_pretrain at the first of B = 8, 7, 6, 4, 2
-   that fits (the config's 32, 16 and 12 do not on an 80 GB card; the peak
-   reached printed): 3 steps with the NCE, colour and normal losses finite and matched
+   ao_tpu_torch.tools.train_pretrain: 2 steps at B=6 in the full run (3
+   under ``--heads`` at the first of B = 8, 7, 6, 4, 2 that fits: the
+   config's 32, 16 and 12 do not on an 80 GB card; the peak reached
+   printed), the NCE, colour and normal losses finite and matched
    pairs on every step, and the matching kNN timed on one of its batches;
    then one step of pretrain-msc-v1m2-0-spunet-csc.py at that batch. Each run prints its step seconds, data wait and peak
    memory. ``--heads`` runs this phase alone, on data made for it.
@@ -181,7 +183,8 @@ its ScanNet small and large configs.
    MultiStepLR's lr, launches per step, step seconds, data wait, peak
    memory), one more timed for the share of its exact kNN (chunked above
    2^28 scores), and whole-scene testing of the slice phase's room with
-   the config's views. configs/modelnet40/cls-ptv1-0-base.py as written
+   the config's first 3 views (all 10 under ``--ptv1``).
+   configs/modelnet40/cls-ptv1-0-base.py as written
    (Cls26, B=32 x 1024, SGD nesterov) on synthetic shapes in ModelNet40's
    layout (40 classes, 10000 points with normals a file, one train and one
    test shape a class): 3 steps whose cut epoch ends with the
@@ -192,9 +195,10 @@ its ScanNet small and large configs.
    ``--ptv1`` runs this phase alone, on data made for it.
 13. Swin3D phase: configs/scannet/semseg-swin3d-v1m1-0-small.py as written
    (f32, AdamW with the cRSE tables in their param_dicts group, OneCycle,
-   Mix3D) on phase 7's rooms: one train step at the first of B = 12, 8,
-   6, 4, 3, 2 that fits unmixed (Mix3D's worst case; the peak reached
-   printed for each that does not) with its K1 and K2 calls (the decoder's 2-probe k=3 interpolation
+   Mix3D) on phase 7's rooms: one unmixed train step (Mix3D's worst case)
+   at B=6 in the full run (under ``--swin3d`` at the first of B = 12, 8,
+   6, 4, 3, 2 that fits, the peak reached printed for each that does not)
+   with its K1 and K2 calls (the decoder's 2-probe k=3 interpolation
    search at four levels) captured and held, 3 counted steps at that
    batch (losses finite, parameters moved, both groups' lr OneCycle's,
    each stage's occupied window rows against num_windows and the points
@@ -203,17 +207,41 @@ its ScanNet small and large configs.
    kernel, the downsampling's exact kNN's share); one step of
    semseg-swin3d-v1m1-1-large.py at the first of B
    = 4, 2, 1 that fits unmixed; whole-scene testing of the ScanNet room with the
-   config's 10 views (the first fragments' K1 / K2 calls held).
-   ``--swin3d`` runs this phase alone, on data made for it.
+   config's first 3 views (all 10 under ``--swin3d``; the first fragments'
+   K1 / K2 calls held). ``--swin3d`` runs this phase alone, on data made
+   for it.
+14. Stratified phase: configs/scannet/semseg-st-v1m1-0-origin.py as
+   written (f32, 5 stages, C up to 384, the KPConv embedding's exact
+   16-NN, AdamW, MultiStepLR, Mix3D) on phase 7's rooms: one unmixed
+   train step at B=ST_BATCH (under ``--stratified`` at the first of B =
+   12, 10, 8, 7, 6, 5, 4, 3, 2 that fits) with its K1 and K2 calls (the decoder's
+   2-probe k=3 search at four levels) captured and held, 3 counted steps
+   (each block's occupied window rows and drops of the fine and the
+   coarse packs, step seconds, data wait, peak memory), one more timed for
+   the exact kNN's share; one step of semseg-st-v1m2-0-refined.py with
+   in_channels=6 (the 6 features its data gives); whole-scene testing of
+   the ScanNet room with the config's first 2 views (the first fragments'
+   K1 / K2 calls held). ``--stratified`` runs this phase alone, with one
+   more step traced for device time by kernel.
+15. OctFormer phase: configs/scannet/semseg-octformer-v1m1-0-base.py as
+   written (f32, C 96 / 192 / 384 / 384, depths 2 / 2 / 18 / 2, groups of
+   26, dilation 4, AdamW with its empty "blocks" parameter group,
+   MultiStepWithWarmupLR, Mix3D) on phase 7's rooms, as phase 14: one
+   unmixed step at B=OCTFORMER_BATCH (under ``--octformer`` the first of
+   the same batches that fits) with its K1 / K2 calls held, 3 counted
+   steps with both groups' lr each step, one timed for the CPE's exact
+   kNN's share, and a 2-view scene test. ``--octformer`` runs it alone,
+   with a traced step.
 
 Each main path (the slice phase, the train phase, the REAL run, the
-ScanNet test and train runs, every train and test run of phases 8-13)
+ScanNet test and train runs, every train and test run of phases 8-15)
 runs with every kernel's launch count set to 0 just before it and read
 just after, and fails if one of its kernels never launched. The last
 three lines are the card, the kernels' JSON record (one entry per kernel,
 then one per new instance of the ScanNet config, then one per kernel of
-the outdoor, PT-v2m1, sparse, CAC, PT-v1 and Swin3D paths at its heaviest
-shape there, then FPS) and {"ok": true, "device": {...}}.
+the outdoor, PT-v2m1, sparse, CAC, PT-v1, Swin3D, Stratified and
+OctFormer paths at its heaviest shape there, then FPS) and {"ok": true,
+"device": {...}}.
 """
 
 from __future__ import annotations
@@ -2106,6 +2134,25 @@ def held(names, label, fn, limit=None):
     return out, rows
 
 
+def fit_batch(batches, label, card, fn):
+    """``(batch, fn(batch))`` of the first of ``batches`` whose ``fn`` does
+    not run out of memory; prints the peak reached by each that does."""
+    import gc
+
+    for batch in batches:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            return batch, fn(batch)
+        except torch.cuda.OutOfMemoryError as e:
+            print(f"{label} B={batch}: out of memory, peak reached "
+                  f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB ("
+                  f"{str(e).splitlines()[0][:160]}); card {card}", flush=True)
+            del e
+            gc.collect()
+    raise RuntimeError(f"{label} fits none of the batches {batches}")
+
+
 def run_submit_test(config, device, seed, workdir, options):
     """Whole-scan testing of ``config``'s test split through the port's
     entry point with ``submit=True`` and the KEY=VALUE ``options``, on the
@@ -2547,6 +2594,9 @@ CAC_PTV2_IN = ("model.backbone.in_channels=6",)
 # 12 ran out of memory on an 80 GB card in every full run (B=7 fits), so
 # the ladder starts at 8 to keep the script inside its time limit
 MSC_BATCHES = (8, 7, 6, 4, 2)
+# the full run's MSC batch and steps (the ladder runs under --heads)
+MSC_FULL_BATCH = 6
+MSC_FULL_STEPS = 2
 
 
 def check_terms(record, terms, label):
@@ -2622,7 +2672,7 @@ def time_msc_knn(trainer, card):
 
 
 def heads_phase(device, seed, t0, card="", scannet_dir=None, s3dis_rooms=None,
-                steps=3):
+                steps=3, msc_batches=MSC_BATCHES, msc_steps=3):
     """Phase 11: the SpUNet task heads' configs as written (f32, full width)
     on the rooms of phases 7 and 5 (the ScanNet rooms written under
     ``scannet_dir``, the S3DIS rooms given as ``s3dis_rooms``, written here
@@ -2634,9 +2684,9 @@ def heads_phase(device, seed, t0, card="", scannet_dir=None, s3dis_rooms=None,
     ``steps`` counted; PointGroup ScanNet at B=12 through
     ao_tpu_torch.tools.train_insseg, whose cut epoch ends with the
     InsSegEvaluator on the val room (:func:`check_insseg`), and PointGroup
-    S3DIS at B=12; MSC-v1m1 through ao_tpu_torch.tools.train_pretrain at
-    the first of :data:`MSC_BATCHES` that fits (each that does not prints
-    the peak reached), then one MSC-v1m2 (CSC) step at
+    S3DIS at B=12; MSC-v1m1 through ao_tpu_torch.tools.train_pretrain,
+    ``msc_steps`` steps at the first of ``msc_batches`` that fits (each
+    that does not prints the peak reached), then one MSC-v1m2 (CSC) step at
     that batch. Every run: losses (CAC's four terms, PointGroup's three,
     MSC's NCE, colour and normal) finite, matched pairs > 0 each MSC step,
     parameters moved, the schedule's lr, step seconds, data wait, peak
@@ -2740,24 +2790,11 @@ def heads_phase(device, seed, t0, card="", scannet_dir=None, s3dis_rooms=None,
         return opts(sc_root, n_msc, batch, n_steps, name) + [
             f"epoch={eval_epoch * -(-batch * n_steps // n_msc)}"]
 
-    for batch in MSC_BATCHES:
-        try:
-            launches["msc_train"], records["msc_train"], trainer = sparse_train(
-                f"scannet msc train B={batch}", MSC_CONFIG, device,
-                msc_opts(batch, steps, f"msc{batch}"), steps, (),
-                onecycle_of, card, entry="train_pretrain", keep=True)
-            break
-        except torch.cuda.OutOfMemoryError as e:
-            print(f"scannet msc train B={batch}: out of memory, peak reached "
-                  f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB ("
-                  f"{str(e).splitlines()[0][:160]}); card {card}", flush=True)
-            del e
-            import gc
-
-            gc.collect()
-            torch.cuda.empty_cache()
-    else:
-        raise RuntimeError(f"MSC fits none of the batches {MSC_BATCHES}")
+    _, (launches["msc_train"], records["msc_train"], trainer) = fit_batch(
+        msc_batches, "scannet msc train", card, lambda b: sparse_train(
+            f"scannet msc train B={b}", MSC_CONFIG, device,
+            msc_opts(b, msc_steps, f"msc{b}"), msc_steps, (), onecycle_of, card,
+            entry="train_pretrain", keep=True))
     records["msc_knn"] = time_msc_knn(trainer, card)
     del trainer
     torch.cuda.empty_cache()
@@ -2982,7 +3019,8 @@ def fps_cases(device, seed=0):
                                             device=device), 1024)]
 
 
-def ptv1_phase(device, seed, t0, card="", rooms=None, test_room=None, steps=3):
+def ptv1_phase(device, seed, t0, card="", rooms=None, test_room=None, steps=3,
+               test_views=None):
     """Phase 12: PT-v1 and the classification and part-segmentation tasks
     at full width (f32). FPS held against its plain version on
     :func:`fps_cases`. configs/s3dis/semseg-pt-v1-0-base.py (Seg50,
@@ -2992,8 +3030,8 @@ def ptv1_phase(device, seed, t0, card="", rooms=None, test_room=None, steps=3):
     reached) with its K1, K2 and FPS calls captured and held, then
     ``steps`` counted steps at that batch, one more timed for the exact
     kNN's share (:func:`profile_train_step`), and whole-scene testing of ``test_room``
-    (the slice phase's) with the config's views, the kernel calls of its
-    first fragment batch held. Then ModelNet40 shapes
+    (the slice phase's) with the config's first ``test_views`` views (all 10
+    where None), the kernel calls of its first fragment batch held. Then ModelNet40 shapes
     made here (:func:`modelnet_setup`: 40 classes, one train and one test
     shape each, 10000 points): configs/modelnet40/cls-ptv1-0-base.py as
     written (Cls26, B=32 x 1024, SGD nesterov, MultiStepLR) for ``steps``
@@ -3033,23 +3071,10 @@ def ptv1_phase(device, seed, t0, card="", rooms=None, test_room=None, steps=3):
         return sparse_options(s3_root, n_s3, batch, n_steps,
                               os.path.join(work, name), seed)
 
-    for batch in PTV1_BATCHES:
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-        try:
-            rows += capture_step(PTV1_CONFIG, opts(batch, 1, f"seg50_k{batch}"),
-                                 device, PTV1_KERNELS, t0,
-                                 f"PT-v1 Seg50 train step B={batch}")
-            break
-        except torch.cuda.OutOfMemoryError as e:
-            print(f"ptv1 seg50 train B={batch}: out of memory, peak reached "
-                  f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB ("
-                  f"{str(e).splitlines()[0][:160]}); card {card}", flush=True)
-            del e
-            gc.collect()
-            torch.cuda.empty_cache()
-    else:
-        raise RuntimeError(f"PT-v1 Seg50 fits none of the batches {PTV1_BATCHES}")
+    batch, rows_b = fit_batch(PTV1_BATCHES, "ptv1 seg50 train", card, lambda b: (
+        capture_step(PTV1_CONFIG, opts(b, 1, f"seg50_k{b}"), device,
+                     PTV1_KERNELS, t0, f"PT-v1 Seg50 train step B={b}")))
+    rows += rows_b
     print(f"ptv1 seg50: B={batch} fits; captured step peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; card {card}",
           flush=True)
@@ -3068,7 +3093,8 @@ def ptv1_phase(device, seed, t0, card="", rooms=None, test_room=None, steps=3):
     log(t0, "PT-v1 Seg50 train done")
 
     setup = slice_setup(test_room if test_room is not None
-                        else make_room(seed), workdir=os.path.join(work, "scene"))
+                        else make_room(seed), views=test_views,
+                        workdir=os.path.join(work, "scene"))
     workdir, options, n_views = setup
     torch.manual_seed(seed)
     torch.save(build_model(dict(Config.fromfile(PTV1_CONFIG).model)).state_dict(),
@@ -3165,16 +3191,23 @@ SWIN3D_LARGE_CONFIG = os.path.join(ROOT, "configs", "scannet",
 # 12, the large config's (one step)
 SWIN3D_BATCHES = (12, 8, 6, 4, 3, 2)
 SWIN3D_LARGE_BATCHES = (4, 2, 1)
-# the kernels of the Swin3D paths: the decoder's 3-NN interpolation above
-# 2M query x key pairs (2-probe curve search: K1, then K2's fused merge)
-SWIN3D_KERNELS = ("knn_window", "merge_topk")
+# the full run's: the small config's batch the ladder found (B=12 and 8 ran
+# out of memory unmixed on an 80 GB card) and the scene test's views
+SWIN3D_BATCH = 6
+FULL_RUN_TEST_VIEWS = 3
+# the kernels of the Swin3D, Stratified and OctFormer paths: the decoder's
+# 3-NN interpolation above 2M query x key pairs (2-probe curve search: K1,
+# then K2's fused merge)
+UNPOOL_KERNELS = ("knn_window", "merge_topk")
 
 
 class SwinSteps:
     """While active, keeps after every train step each block's window
-    statistics (stage, block, occupied rows, rows, points dropped beyond
-    num_windows, points dropped beyond the capacity) and, from before the
-    step, each parameter group's lr."""
+    statistics (stage, block, then the block's own: Swin3D's occupied rows,
+    rows, points dropped beyond num_windows and beyond the capacity, the
+    Stratified Transformer's with its coarse pack's after them), where the
+    backbone has them, and, from before the step, each parameter group's
+    lr."""
 
     def __enter__(self):
         from ao_tpu_torch.engines.train import Trainer
@@ -3185,8 +3218,9 @@ class SwinSteps:
         def step(trainer, batch):
             self.lrs.append([g["lr"] for g in trainer.optimizer.param_groups])
             out = self._orig(trainer, batch)
-            self.stats.append([tuple(int(x) for x in st)
-                               for st in trainer.model.backbone.window_stats])
+            stats = getattr(trainer.model.backbone, "window_stats", None)
+            if stats is not None:
+                self.stats.append([tuple(int(x) for x in st) for st in stats])
             return out
 
         Trainer._step = step
@@ -3199,19 +3233,58 @@ class SwinSteps:
 
 
 def window_summary(stats):
-    """Per stage: (occupied rows, rows, dropped beyond num_windows, dropped
-    beyond the capacity) of each block of one step's statistics."""
+    """Per stage: each block's own statistics (:class:`SwinSteps`: occupied
+    rows, rows, dropped beyond num_windows, dropped beyond the capacity,
+    and the coarse pack's after them) of one step."""
     out = {}
-    for s, _, rows, cap, by_rows, by_cap in stats:
-        out.setdefault(s, []).append((rows, cap, by_rows, by_cap))
+    for s, _, *rest in stats:
+        out.setdefault(s, []).append(tuple(rest))
     return out
 
 
-def swin3d_phase(device, seed, t0, card="", scannet_dir=None, steps=3):
+def scannet_scene_test(config, device, sc_root, work, seed, label, card,
+                       views=None):
+    """Whole-scene testing of the ScanNet val room through the test entry
+    point with the config's first ``views`` views (all where None) and
+    random weights from ``seed``, driven with the launch counts set to 0
+    just before and read just after, the K1 / K2 calls of its first
+    fragments held; votes checked. Returns (launches, kernel rows, the
+    scene's record)."""
+    from ao_tpu_torch.models import build_model
+    from ao_tpu_torch.tools.test import main as test_main
+    from ao_tpu_torch.utils import Config
+
+    cfg = Config.fromfile(config)
+    torch.manual_seed(seed)
+    weight = os.path.join(work, f"{label}.pt")
+    torch.save(build_model(dict(cfg.model)).state_dict(), weight)
+    aug = cfg.data.test.test_cfg.aug_transform[:views]
+    save = os.path.join(work, f"{label}_test")
+    (result, launches), rows = held(
+        UNPOOL_KERNELS, f"{label} scene test", lambda: _drive(
+            UNPOOL_KERNELS, lambda: test_main([
+                "--config-file", config, "--device", str(device), "--options",
+                f"weight={weight}", f"save_path={save}",
+                f"data.test.data_root={sc_root}",
+                f"data.test.test_cfg.aug_transform={aug!r}"])),
+        limit={"knn_window": 4, "merge_topk": 4})
+    names = sorted(os.listdir(os.path.join(sc_root, "val")))
+    votes = np.load(os.path.join(save, "result", names[0].replace(".pth", "_pred.npy")))
+    check_votes(votes, len(aug), num_classes=20)
+    scene = result["scenes"][0]
+    print(f"scannet {label} test ({len(aug)} views): {scene['fragments']} fragments "
+          f"in batches (B, N) {scene['batches']}; scene {scene['seconds']:.2f} s; "
+          f"votes {votes.shape}; mIoU {result['mIoU']:.4f} (random weights); "
+          f"launches {launches}; card {card}", flush=True)
+    return launches, rows, scene
+
+
+def swin3d_phase(device, seed, t0, card="", scannet_dir=None, steps=3,
+                 batches=(SWIN3D_BATCH,), views=None):
     """Phase 13: configs/scannet/semseg-swin3d-v1m1-0-small.py as written
     (f32, AdamW with the tables' param_dicts group, OneCycle, Mix3D) on the
     ScanNet phase's rooms (written under ``scannet_dir``; made here where
-    None): one train step at the first of :data:`SWIN3D_BATCHES` that fits
+    None): one train step at the first of ``batches`` that fits
     unmixed (mix_prob 0: every scene at max_points, Mix3D's worst case; each
     batch that does not fit prints the peak reached) with its K1 and K2
     calls captured and held against their plain versions, ``steps``
@@ -3222,14 +3295,12 @@ def swin3d_phase(device, seed, t0, card="", scannet_dir=None, steps=3):
     (:func:`profile_train_step`); the
     large config's one step at the first of
     :data:`SWIN3D_LARGE_BATCHES` that fits unmixed; whole-scene testing of the
-    ScanNet room with the config's 10 views, the kernel calls of its first
-    fragments held. Returns (kernel rows, launches by path, records)."""
+    ScanNet room with the config's first ``views`` views (all 10 where
+    None), the kernel calls of its first fragments held. Returns (kernel
+    rows, launches by path, records)."""
     import gc
 
-    from ao_tpu_torch.models import build_model
     from ao_tpu_torch.models.swin3d import swin3d
-    from ao_tpu_torch.tools.test import main as test_main
-    from ao_tpu_torch.utils import Config
 
     t_phase = time.perf_counter()
     work = tempfile.mkdtemp(prefix="ao_chip_swin3d_")
@@ -3245,25 +3316,11 @@ def swin3d_phase(device, seed, t0, card="", scannet_dir=None, steps=3):
         return sparse_options(sc_root, n_sc, batch, n_steps,
                               os.path.join(work, name), seed)
 
-    def ladder(batches, label, fn):
-        for batch in batches:
-            torch.cuda.empty_cache()
-            torch.cuda.reset_peak_memory_stats()
-            try:
-                return batch, fn(batch)
-            except torch.cuda.OutOfMemoryError as e:
-                print(f"{label} B={batch}: out of memory, peak reached "
-                      f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB ("
-                      f"{str(e).splitlines()[0][:160]}); card {card}", flush=True)
-                del e
-                gc.collect()
-        raise RuntimeError(f"{label} fits none of the batches {batches}")
-
     # a batch fits when its step fits unmixed: Mix3D merges pairs of
     # scenes into one of at most max_points, so a mixed step holds fewer
-    batch, rows = ladder(SWIN3D_BATCHES, "scannet swin3d train unmixed", lambda b: (
+    batch, rows = fit_batch(batches, "scannet swin3d train unmixed", card, lambda b: (
         capture_step(SWIN3D_CONFIG, opts(b, 1, f"kernels_b{b}") + ["mix_prob=0"],
-                     device, SWIN3D_KERNELS, t0, f"Swin3D train step B={b}")))
+                     device, UNPOOL_KERNELS, t0, f"Swin3D train step B={b}")))
     print(f"scannet swin3d: B={batch} fits unmixed; captured step peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; card {card}",
           flush=True)
@@ -3271,7 +3328,7 @@ def swin3d_phase(device, seed, t0, card="", scannet_dir=None, steps=3):
     with SwinSteps() as seen:
         launches["train"], records["train"], trainer = train_run(
             f"scannet swin3d train B={batch} (as written)", SWIN3D_CONFIG, device,
-            opts(batch, steps, "train"), steps, SWIN3D_KERNELS, onecycle_of, card,
+            opts(batch, steps, "train"), steps, UNPOOL_KERNELS, onecycle_of, card,
             keep=True)
     groups = trainer.optimizer.param_groups
     n_tables = sum("table" in n for n, _ in trainer.model.named_parameters())
@@ -3300,12 +3357,12 @@ def swin3d_phase(device, seed, t0, card="", scannet_dir=None, steps=3):
     torch.cuda.empty_cache()
     log(t0, "Swin3D train done")
 
-    large, (launches["large_train"], records["large_train"]) = ladder(
-        SWIN3D_LARGE_BATCHES, "scannet swin3d large train unmixed",
+    large, (launches["large_train"], records["large_train"]) = fit_batch(
+        SWIN3D_LARGE_BATCHES, "scannet swin3d large train unmixed", card,
         lambda b: train_run(
             f"scannet swin3d large train B={b} (unmixed)", SWIN3D_LARGE_CONFIG,
             device, opts(b, 1, f"large_b{b}") + ["mix_prob=0"], 1,
-            SWIN3D_KERNELS, onecycle_of, card))
+            UNPOOL_KERNELS, onecycle_of, card))
     print(f"scannet swin3d large: B={large} fits unmixed; peak memory "
           f"{records['large_train']['peak_gib']:.2f} GiB, step "
           f"{records['large_train']['step_seconds'][0]:.4f} s; card {card}",
@@ -3314,31 +3371,222 @@ def swin3d_phase(device, seed, t0, card="", scannet_dir=None, steps=3):
     torch.cuda.empty_cache()
     log(t0, "Swin3D large step done")
 
-    cfg = Config.fromfile(SWIN3D_CONFIG)
-    torch.manual_seed(seed)
-    weight = os.path.join(work, "swin3d.pt")
-    torch.save(build_model(dict(cfg.model)).state_dict(), weight)
-    (result, launches["test"]), held_rows = held(
-        SWIN3D_KERNELS, "Swin3D scene test", lambda: _drive(
-            SWIN3D_KERNELS, lambda: test_main([
-                "--config-file", SWIN3D_CONFIG, "--device", str(device),
-                "--options", f"weight={weight}",
-                f"save_path={os.path.join(work, 'test')}",
-                f"data.test.data_root={sc_root}"])),
-        limit={"knn_window": 4, "merge_topk": 4})
+    launches["test"], held_rows, records["test"] = scannet_scene_test(
+        SWIN3D_CONFIG, device, sc_root, work, seed, "swin3d", card, views)
     rows += held_rows
-    names = sorted(os.listdir(os.path.join(sc_root, "val")))
-    votes = np.load(os.path.join(work, "test", "result",
-                                 names[0].replace(".pth", "_pred.npy")))
-    check_votes(votes, len(cfg.data.test.test_cfg.aug_transform), num_classes=20)
-    scene = result["scenes"][0]
-    records["test"] = scene
-    print(f"scannet swin3d test: {scene['fragments']} fragments in batches "
-          f"(B, N) {scene['batches']}; scene {scene['seconds']:.2f} s; votes "
-          f"{votes.shape}; mIoU {result['mIoU']:.4f} (random weights); launches "
-          f"{launches['test']}; card {card}", flush=True)
     torch.cuda.empty_cache()
     log(t0, f"Swin3D phase done in {time.perf_counter() - t_phase:.1f} s")
+    return rows, launches, records
+
+
+# ---------------------------------------------------------------------------
+# phases 14 and 15: the Stratified Transformer and OctFormer
+# ---------------------------------------------------------------------------
+
+ST_CONFIG = os.path.join(ROOT, "configs", "scannet", "semseg-st-v1m1-0-origin.py")
+ST_REFINED_CONFIG = os.path.join(ROOT, "configs", "scannet",
+                                 "semseg-st-v1m2-0-refined.py")
+OCTFORMER_CONFIG = os.path.join(ROOT, "configs", "scannet",
+                                "semseg-octformer-v1m1-0-base.py")
+# the ST-v1m2 configs set in_channels=9 over the 6 features their Collect
+# gives (colour, normal): the port sizes the KPConv kernel from
+# in_channels and refuses the mismatch, so the run sets the 6 the data
+# gives (ROADMAP.md section 3)
+ST_REFINED_IN = ("model.backbone.in_channels=6",)
+# the batches the flags (--stratified, --octformer) try in turn until an
+# unmixed step and the counted steps fit, from the configs' own 12; the
+# full run takes the one they found on an 80 GB card
+ST_BATCHES = (12, 10, 8, 7, 6, 5, 4, 3, 2)
+OCTFORMER_BATCHES = (12, 10, 8, 7, 6, 5, 4, 3, 2)
+ST_BATCH = 8
+OCTFORMER_BATCH = 7
+# the views of their scene tests (the configs' first ones, of 10)
+ST_OCTFORMER_TEST_VIEWS = 2
+
+
+def warmup_multistep_of(trainer):
+    """MultiStepWithWarmupLR per step: MultiStepLR's factor times the linear
+    warmup from warmup_scale over warmup_rate of the steps."""
+    s, base = trainer.cfg.scheduler, trainer.cfg.optimizer.lr
+    total = trainer.total_steps
+    bounds = [int(r * total) for r in s.milestones]
+    warmup = s.warmup_rate * total
+
+    def lr(i):
+        f = s.gamma ** sum(i >= b for b in bounds)
+        if i <= warmup:
+            f *= 1.0 - (1.0 - i / warmup) * (1.0 - s.warmup_scale)
+        return base * f
+
+    return lr
+
+
+def stratified_phase(device, seed, t0, card="", scannet_dir=None, steps=3,
+                     batches=(ST_BATCH,), traced=False):
+    """Phase 14: configs/scannet/semseg-st-v1m1-0-origin.py as written (f32,
+    AdamW, MultiStepLR, Mix3D; 5 stages, C up to 384, the KPConv embedding's
+    exact 16-NN) on the ScanNet phase's rooms (written under
+    ``scannet_dir``; made here where None): at the first of ``batches``
+    that fits (the peak reached printed for each that does not), one
+    unmixed train step (Mix3D's worst case) with its K1 and K2 calls
+    captured and held against their plain versions, then ``steps`` counted
+    steps at that batch as written (losses finite, parameters moved,
+    MultiStepLR's lr, each block's occupied window rows and drops of the
+    fine and coarse packs, step seconds, data wait, peak memory), one more
+    timed for the exact kNN's share (:func:`profile_train_step`) and, with
+    ``traced``, one traced for device time by kernel; one
+    step of semseg-st-v1m2-0-refined.py at that batch with
+    ``in_channels=6``; whole-scene testing of the ScanNet room with the
+    origin config's first views (:func:`scannet_scene_test`). Returns
+    (kernel rows, launches by path, records)."""
+    import gc
+
+    from ao_tpu_torch.models.stratified_transformer import stratified
+
+    t_phase = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="ao_chip_st_")
+    if scannet_dir is None:
+        scannet_dir, _ = scannet_setup(
+            [make_scannet_room(s_, size) for s_, size in SCANNET_ROOMS],
+            make_scannet_room(*SCANNET_TEST_ROOM), workdir=work)
+    sc_root = os.path.join(scannet_dir, "scannet")
+    n_sc = len(os.listdir(os.path.join(sc_root, "train")))
+    launches, records = {}, {}
+
+    def opts(batch, n_steps, name):
+        return sparse_options(sc_root, n_sc, batch, n_steps,
+                              os.path.join(work, name), seed)
+
+    def attempt(b):
+        rows = capture_step(ST_CONFIG, opts(b, 1, f"kernels_b{b}") + ["mix_prob=0"],
+                            device, UNPOOL_KERNELS, t0, f"ST-v1m1 train step B={b}")
+        print(f"scannet st-v1m1: B={b} fits unmixed; captured step peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; card {card}",
+              flush=True)
+        torch.cuda.empty_cache()
+        with SwinSteps() as seen:
+            out = train_run(
+                f"scannet st-v1m1 train B={b} (as written)", ST_CONFIG, device,
+                opts(b, steps, "train"), steps, UNPOOL_KERNELS, multistep_of, card,
+                keep=True)
+        return (rows, seen) + out
+
+    batch, (rows, seen, launches["train"], records["train"], trainer) = fit_batch(
+        batches, "scannet st-v1m1 train", card, attempt)
+    records["train"]["windows"] = [window_summary(st) for st in seen.stats]
+    for s, blocks in window_summary(seen.stats[-1]).items():
+        print(f"scannet st-v1m1 stage {s} (last step, per block): occupied rows "
+              f"{[b[0] for b in blocks]} of {blocks[0][1]}, dropped beyond "
+              f"num_windows {[b[2] for b in blocks]}, beyond the capacity "
+              f"{[b[3] for b in blocks]}; coarse rows {[b[4] for b in blocks]}, "
+              f"dropped beyond num_windows {[b[5] for b in blocks]}, beyond the "
+              f"capacity {[b[6] for b in blocks]}", flush=True)
+    records["trace"] = profile_train_step(
+        trainer, next(iter(trainer.train_loader)), stratified, warm=False,
+        traced=traced)
+    print(json.dumps({"scannet_st_v1m1_step_profile": dict(
+        records["trace"], card=card)}), flush=True)
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(t0, "ST-v1m1 train done")
+
+    launches["refined_train"], records["refined_train"] = train_run(
+        f"scannet st-v1m2 refined train B={batch} (in_channels=6)",
+        ST_REFINED_CONFIG, device, opts(batch, 1, "refined") + list(ST_REFINED_IN),
+        1, UNPOOL_KERNELS, multistep_of, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(t0, "ST-v1m2 step done")
+
+    launches["test"], held_rows, records["test"] = scannet_scene_test(
+        ST_CONFIG, device, sc_root, work, seed, "st-v1m1", card,
+        ST_OCTFORMER_TEST_VIEWS)
+    rows += held_rows
+    torch.cuda.empty_cache()
+    log(t0, f"Stratified phase done in {time.perf_counter() - t_phase:.1f} s")
+    return rows, launches, records
+
+
+def octformer_phase(device, seed, t0, card="", scannet_dir=None, steps=3,
+                    batches=(OCTFORMER_BATCH,), traced=False):
+    """Phase 15: configs/scannet/semseg-octformer-v1m1-0-base.py as written
+    (f32, C 96 / 192 / 384 / 384, depths 2 / 2 / 18 / 2, groups of 26,
+    dilation 4, AdamW with the config's "blocks" parameter group,
+    MultiStepWithWarmupLR, Mix3D) on the ScanNet phase's rooms: at the
+    first of ``batches`` that fits, one unmixed train step with its K1 and
+    K2 calls held, then ``steps`` counted steps as written (each parameter
+    group's lr each step: the default group's the schedule's at lr 0.0015,
+    the empty "blocks" group's at its own 0.00015), one more timed for the
+    exact kNN's share (the CPE's stage graphs) and, with ``traced``, one
+    traced for device time by kernel; whole-scene testing of the
+    ScanNet room with the config's first views. Returns (kernel rows,
+    launches by path, records)."""
+    import gc
+
+    from ao_tpu_torch.models.octformer import octformer
+
+    t_phase = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="ao_chip_octformer_")
+    if scannet_dir is None:
+        scannet_dir, _ = scannet_setup(
+            [make_scannet_room(s_, size) for s_, size in SCANNET_ROOMS],
+            make_scannet_room(*SCANNET_TEST_ROOM), workdir=work)
+    sc_root = os.path.join(scannet_dir, "scannet")
+    n_sc = len(os.listdir(os.path.join(sc_root, "train")))
+    launches, records = {}, {}
+
+    def opts(batch, n_steps, name):
+        return sparse_options(sc_root, n_sc, batch, n_steps,
+                              os.path.join(work, name), seed)
+
+    def attempt(b):
+        rows = capture_step(OCTFORMER_CONFIG, opts(b, 1, f"kernels_b{b}")
+                            + ["mix_prob=0"], device, UNPOOL_KERNELS, t0,
+                            f"OctFormer train step B={b}")
+        print(f"scannet octformer: B={b} fits unmixed; captured step peak "
+              f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; card "
+              f"{card}", flush=True)
+        torch.cuda.empty_cache()
+        with SwinSteps() as seen:
+            out = train_run(
+                f"scannet octformer train B={b} (as written)", OCTFORMER_CONFIG,
+                device, opts(b, steps, "train"), steps, UNPOOL_KERNELS,
+                warmup_multistep_of, card, keep=True)
+        return (rows, seen) + out
+
+    batch, (rows, seen, launches["train"], records["train"], trainer) = fit_batch(
+        batches, "scannet octformer train", card, attempt)
+    groups = trainer.optimizer.param_groups
+    n_params = len(list(trainer.model.parameters()))
+    if [len(g["params"]) for g in groups] != [n_params, 0]:
+        raise RuntimeError("the config's \"blocks\" group is not the empty second one")
+    blocks_lr = trainer.cfg.param_dicts[0].lr
+    for i, (default, blocks) in enumerate(seen.lrs):
+        if abs(blocks / default - blocks_lr / trainer.cfg.optimizer.lr) > 1e-9:
+            raise RuntimeError(f"step {i}: the blocks group's lr {blocks} does not "
+                               f"follow the schedule at its own lr {blocks_lr}")
+    print(f"scannet octformer param_dicts: {n_params} parameters in the default "
+          f"group, 0 in the \"blocks\" group; lr per step (default, blocks) "
+          f"{seen.lrs} (MultiStepWithWarmupLR over {trainer.total_steps} steps); "
+          f"card {card}", flush=True)
+    records["train"]["lrs"] = seen.lrs
+    records["trace"] = profile_train_step(
+        trainer, next(iter(trainer.train_loader)), octformer, warm=False,
+        traced=traced)
+    print(json.dumps({"scannet_octformer_step_profile": dict(
+        records["trace"], card=card)}), flush=True)
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(t0, "OctFormer train done")
+
+    launches["test"], held_rows, records["test"] = scannet_scene_test(
+        OCTFORMER_CONFIG, device, sc_root, work, seed, "octformer", card,
+        ST_OCTFORMER_TEST_VIEWS)
+    rows += held_rows
+    torch.cuda.empty_cache()
+    log(t0, f"OctFormer phase done in {time.perf_counter() - t_phase:.1f} s")
     return rows, launches, records
 
 
@@ -3566,9 +3814,15 @@ def run(device, seed, t0, room_size=(4.8, 4.0, 2.6), train_steps=5, card="",
     m1_rows, m1_launches, _ = ptv2m1_phase(device, seed, t0, rooms, card)
     sp_rows, sp_launches, _ = sparse_phase(device, seed, t0, card, sc_dir,
                                            kitti_dir, workdir)
-    hd_rows, hd_launches, _ = heads_phase(device, seed, t0, card, sc_dir, rooms)
-    v1_rows, v1_launches, _ = ptv1_phase(device, seed, t0, card, rooms, room)
-    sw_rows, sw_launches, _ = swin3d_phase(device, seed, t0, card, sc_dir)
+    hd_rows, hd_launches, _ = heads_phase(device, seed, t0, card, sc_dir, rooms,
+                                          msc_batches=(MSC_FULL_BATCH,),
+                                          msc_steps=MSC_FULL_STEPS)
+    v1_rows, v1_launches, _ = ptv1_phase(device, seed, t0, card, rooms, room,
+                                         test_views=FULL_RUN_TEST_VIEWS)
+    sw_rows, sw_launches, _ = swin3d_phase(device, seed, t0, card, sc_dir,
+                                           views=FULL_RUN_TEST_VIEWS)
+    st_rows, st_launches, _ = stratified_phase(device, seed, t0, card, sc_dir)
+    oc_rows, oc_launches, _ = octformer_phase(device, seed, t0, card, sc_dir)
 
     # one entry per kernel: its heaviest captured shape of the S3DIS paths
     kernels = []
@@ -3616,7 +3870,9 @@ def run(device, seed, t0, room_size=(4.8, 4.0, 2.6), train_steps=5, card="",
             ("sparse", sp_rows, sp_launches),
             ("cac", hd_rows, {"cac_ptv2_train": hd_launches["cac_ptv2_train"]}),
             ("ptv1", [r for r in v1_rows if r["name"] != "fps"], v1_launches),
-            ("swin3d", sw_rows, sw_launches)):
+            ("swin3d", sw_rows, sw_launches),
+            ("stratified", st_rows, st_launches),
+            ("octformer", oc_rows, oc_launches)):
         for name in sorted({r["name"] for r in phase_rows}):
             row = max((r for r in phase_rows if r["name"] == name),
                       key=lambda r: r["bound_ms"])
@@ -3693,6 +3949,16 @@ def main():
         "--swin3d", action="store_true",
         help="run only phase 13 (the ScanNet Swin3D configs, on rooms made for "
              "it), and no kernel record")
+    parser.add_argument(
+        "--stratified", action="store_true",
+        help="run only phase 14 (the ScanNet Stratified Transformer configs, "
+             "on rooms made for it) at the largest of ST_BATCHES whose unmixed "
+             "step fits, with a traced step, and no kernel record")
+    parser.add_argument(
+        "--octformer", action="store_true",
+        help="run only phase 15 (the ScanNet OctFormer config, on rooms made "
+             "for it) at the largest of OCTFORMER_BATCHES whose unmixed step "
+             "fits, with a traced step, and no kernel record")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA card (torch.cuda.is_available() is "
@@ -3730,9 +3996,17 @@ def main():
     if args.ptv1:
         ptv1_phase(torch.device("cuda"), args.seed, t0, card)
     if args.swin3d:
-        swin3d_phase(torch.device("cuda"), args.seed, t0, card)
+        swin3d_phase(torch.device("cuda"), args.seed, t0, card,
+                     batches=SWIN3D_BATCHES)
+    if args.stratified:
+        stratified_phase(torch.device("cuda"), args.seed, t0, card,
+                         batches=ST_BATCHES, traced=True)
+    if args.octformer:
+        octformer_phase(torch.device("cuda"), args.seed, t0, card,
+                        batches=OCTFORMER_BATCHES, traced=True)
     if (args.scannet_batch is not None or args.outdoor_batch is not None
-            or args.sparse or args.heads or args.ptv1 or args.swin3d):
+            or args.sparse or args.heads or args.ptv1 or args.swin3d
+            or args.stratified or args.octformer):
         faulthandler.cancel_dump_traceback_later()
         print(f"card: {card}", flush=True)
         return 0

@@ -342,30 +342,34 @@ for f in files:
     except KeyError as e:
         assert "is not registered" in str(e), (f, e)
         refused.append(cfg.model.get("backbone", cfg.model).type)
-swin = [f for f in files if "swin3d" in f]
-for f in swin:
+for f in files:
+    if not any(k in f for k in ("swin3d", "-st-", "stv1m2", "octformer")):
+        continue
     cfg = Config.fromfile(f)
     for split in ("train", "val", "test"):
         build_dataset(dict(cfg.data[split], data_root="/nonexistent"))
     bb = cfg.model.backbone
     feat_keys = next(t for t in cfg.data.train.transform
                      if t["type"] == "Collect")["feat_keys"]
-    print("SWIN", f, bb.in_channels, "+".join(feat_keys), bb.normal_channels)
+    print("NEW", f, bb.type, bb.in_channels, "+".join(feat_keys),
+          bb.get("normal_channels"))
 assert not any(k == "jax" or k.startswith(("jax.", "ao_tpu.", "flax", "optax"))
                for k, v in sys.modules.items() if v is not None)
 print("ALL", len(files), len(built), " ".join(sorted(refused)))
 """
 
 
-def test_every_config_but_four_builds_without_ao_tpu():
+def test_every_config_builds_without_ao_tpu():
     """With jax and ao_tpu unimportable, every config under configs/ (81,
-    _base_ aside) loads through the port's Config and 77 build their model
-    on the meta device; the 4 the port refuses are the ST-v1m1 / ST-v1m2
-    (3) and OctFormer-v1m1 (1) ones, whose backbones are not registered.
-    The six Swin3D configs also build their train, val and test datasets
-    (transforms, the test views): S3DIS with in_channels 9 and (coord,
-    color, normal) features, ScanNet and Structured3D with 6 and (color,
-    normal), normals at channels 3:6."""
+    _base_ aside) loads through the port's Config and builds its model on
+    the meta device: none is refused. The six Swin3D, three Stratified and
+    one OctFormer configs also build their train, val and test datasets
+    (transforms, the test views): Swin3D S3DIS with in_channels 9 and
+    (coord, color, normal) features, Swin3D ScanNet and Structured3D with
+    6 and (color, normal), normals at channels 3:6; ST-v1m1 with 6 and
+    (color, normal), the two ST-v1m2 with 9 over the same 6 features (the
+    port runs them with in_channels=6, ROADMAP.md section 3); OctFormer
+    with 9 and (coord, color, normal)."""
     env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="1")
     res = subprocess.run(
         [sys.executable, "-c", _ALL_CONFIGS], cwd=ROOT, env=env,
@@ -373,17 +377,22 @@ def test_every_config_but_four_builds_without_ao_tpu():
     )
     assert res.returncode == 0, res.stderr[-4000:]
     n, n_built, *refused = res.stdout.split("ALL")[1].split()
-    assert (int(n), int(n_built)) == (81, 77)
-    assert refused == ["OctFormer-v1m1", "ST-v1m1", "ST-v1m2", "ST-v1m2"]
-    swin = [line.split()[1:] for line in res.stdout.splitlines()
-            if line.startswith("SWIN")]
-    assert len(swin) == 6
-    for f, in_channels, feat_keys, *normal in swin:
-        if f.startswith("configs/s3dis"):
+    assert (int(n), int(n_built), refused) == (81, 81, [])
+    new = [line.split()[1:] for line in res.stdout.splitlines()
+           if line.startswith("NEW")]
+    assert sorted(t for _, t, *_ in new) == ["OctFormer-v1m1", "ST-v1m1"] + [
+        "ST-v1m2"] * 2 + ["Swin3D-v1m1"] * 6
+    for f, kind, in_channels, feat_keys, *normal in new:
+        if kind == "Swin3D-v1m1" and f.startswith("configs/s3dis"):
             assert (in_channels, feat_keys) == ("9", "coord+color+normal")
-        else:
+        elif kind == "Swin3D-v1m1":
             assert (in_channels, feat_keys, normal) == (
                 "6", "color+normal", ["(3,", "6)"])
+        elif kind == "OctFormer-v1m1":
+            assert (in_channels, feat_keys) == ("9", "coord+color+normal")
+        else:
+            assert (in_channels, feat_keys) == (
+                "6" if kind == "ST-v1m1" else "9", "color+normal")
 
 
 def test_port_sources_name_no_jax_no_ao_tpu_no_cpp_extension():
@@ -425,7 +434,10 @@ def test_port_sources_name_no_jax_no_ao_tpu_no_cpp_extension():
                 "csrc/fps.cu", "models/point_transformer/ptv1.py",
                 "models/point_transformer/convert.py", "datasets/modelnet.py",
                 "engines/hooks/evaluator.py", "ops/window_partition.py",
-                "models/swin3d/swin3d.py", "models/swin3d/convert.py"):
+                "models/swin3d/swin3d.py", "models/swin3d/convert.py",
+                "models/stratified_transformer/stratified.py",
+                "models/stratified_transformer/convert.py",
+                "models/octformer/octformer.py", "models/octformer/convert.py"):
         assert f"ao_tpu_torch/{mod}" in names
     # the one place that names an ao_tpu module: the module name that the
     # config loader serves from the port's copy (a sys.modules key, never
