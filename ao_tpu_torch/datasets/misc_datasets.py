@@ -1,7 +1,6 @@
-"""Structured3D, ArkitScenes and ShapeNetPart (port of
+"""Structured3D, ArkitScenes, ScanNetPair and ShapeNetPart (port of
 ao_tpu/datasets/misc_datasets.py; reference pointcept/datasets/
-{structure3d, arkitscenes, shapenet_part}.py). ScanNetPairDataset is not
-ported yet."""
+{structure3d, arkitscenes, scannet_pair, shapenet_part}.py)."""
 
 from __future__ import annotations
 
@@ -13,6 +12,7 @@ import numpy as np
 
 from .builder import DATASETS
 from .defaults import DefaultDataset, load_scene
+from .transform import Compose
 
 
 @DATASETS.register_module()
@@ -50,6 +50,57 @@ class ArkitScenesDataset(DefaultDataset):
         if "normal" in data:
             out["normal"] = np.asarray(data["normal"], np.float32)
         return out
+
+
+@DATASETS.register_module()
+class ScanNetPairDataset(DefaultDataset):
+    """Two-view contrastive pretraining pairs (PointContrast; reference
+    scannet_pair.py): the frame-cloud pairs of every
+    ``<data_root>/<scene>/pcd/overlap.txt`` (written by
+    ``datasets/preprocessing/preprocess_scannet_pair.py``) whose overlap
+    exceeds ``overlap_threshold``. An item loads both frames, runs each
+    through its own view transform (``view1_transform`` /
+    ``view2_transform``), prefixes its keys ``view1_`` / ``view2_`` and
+    then runs the shared ``transform``."""
+
+    def __init__(self, overlap_threshold=0.3, view1_transform=None,
+                 view2_transform=None, **kwargs):
+        self.overlap_threshold = overlap_threshold
+        self.view1_transform = Compose(view1_transform or [])
+        self.view2_transform = Compose(view2_transform or [])
+        super().__init__(**kwargs)
+
+    def get_data_list(self):
+        data_list = []
+        for overlap_path in glob.glob(
+                os.path.join(self.data_root, "*", "pcd", "overlap.txt")):
+            root = os.path.dirname(overlap_path)
+            with open(overlap_path) as f:
+                for line in f:
+                    parts = line.strip().split()
+                    if len(parts) == 3 and float(parts[2]) > self.overlap_threshold:
+                        data_list.append(tuple(
+                            os.path.join(root, os.path.basename(p))
+                            for p in parts[:2]))
+        return data_list
+
+    def get_data(self, idx):
+        out = {}
+        paths = self.data_list[idx % len(self.data_list)]
+        for prefix, view_tf, path in zip(
+                ("view1_", "view2_"),
+                (self.view1_transform, self.view2_transform), paths):
+            view = load_scene(path)
+            vd = {"coord": np.asarray(view["coord"], np.float32)}
+            for key in ("color", "normal"):
+                if key in view:
+                    vd[key] = np.asarray(view[key], np.float32)
+            for key, value in view_tf(vd).items():
+                out[prefix + key] = value
+        return out
+
+    def prepare_train_data(self, idx):
+        return self.transform(self.get_data(idx))
 
 
 @DATASETS.register_module()

@@ -55,7 +55,10 @@ def index_points(data_dict: dict, idx) -> dict:
 @TRANSFORMS.register_module()
 class Collect:
     """Select keys and concatenate ``*_keys`` groups into single arrays
-    (e.g. feat_keys=("coord", "color") -> data["feat"])."""
+    (e.g. feat_keys=("coord", "color") -> data["feat"]). An offset whose
+    source key the sample lacks is left out: a pair's views carry
+    ``view1_coord`` / ``view2_coord`` and no ``coord``, where the JAX
+    package's Collect raises (ROADMAP.md section 3)."""
 
     def __init__(self, keys, offset_keys_dict=None, **kwargs):
         self.keys = (keys,) if isinstance(keys, str) else tuple(keys)
@@ -67,7 +70,8 @@ class Collect:
     def __call__(self, data_dict):
         out = {k: data_dict[k] for k in self.keys}
         for name, src in self.offset_keys.items():
-            out[name] = np.array([data_dict[src].shape[0]], dtype=np.int64)
+            if src in data_dict:
+                out[name] = np.array([data_dict[src].shape[0]], dtype=np.int64)
         for name, keys in self.concat_groups.items():
             out[name] = np.concatenate(
                 [np.asarray(data_dict[k], np.float32).reshape(

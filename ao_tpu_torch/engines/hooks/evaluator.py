@@ -6,7 +6,10 @@ histograms of ``trainer.eval_batch`` over the validation loader and
 reports mIoU, mAcc and allAcc; mIoU becomes the trainer's current metric.
 ``ClsEvaluator`` (reference :21-102) sums the same histograms of a
 classifier's batches (one prediction a scene) and reports mAcc and
-allAcc; allAcc becomes the current metric.
+allAcc; allAcc becomes the current metric. Under a process group each
+process scores its share of the validation scenes and the histograms,
+losses and batch counts are summed over the processes (as the JAX
+package's, train.py:518-522), so that every process holds the same metric.
 """
 
 from __future__ import annotations
@@ -15,6 +18,7 @@ import time
 
 import numpy as np
 
+from ...utils import comm
 from .builder import HOOKS
 from .default import HookBase
 
@@ -47,6 +51,11 @@ class SemSegEvaluator(HookBase):
             trainer.logger.info(
                 f"Test: [{i + 1}/{len(trainer.val_loader)}] "
                 f"Loss {float(loss):.4f} Batch allIoU {iou:.4f}")
+        sums = comm.reduce_dict(dict(inter=inter_sum, union=union_sum,
+                                     target=target_sum, loss=loss_sum,
+                                     n=n_batches), average=False)
+        inter_sum, union_sum, target_sum, loss_sum, n_batches = (
+            sums[k] for k in ("inter", "union", "target", "loss", "n"))
         iou_class = inter_sum / (union_sum + 1e-10)
         acc_class = inter_sum / (target_sum + 1e-10)
         m_iou = float(np.mean(iou_class))
@@ -102,6 +111,10 @@ class ClsEvaluator(HookBase):
             target_sum += target
             loss_sum += float(loss)
             n_batches += 1
+        sums = comm.reduce_dict(dict(inter=inter_sum, target=target_sum,
+                                     loss=loss_sum, n=n_batches), average=False)
+        inter_sum, target_sum, loss_sum, n_batches = (
+            sums[k] for k in ("inter", "target", "loss", "n"))
         acc_class = inter_sum / (target_sum + 1e-10)
         m_acc = float(np.mean(acc_class))
         all_acc = float(inter_sum.sum() / (target_sum.sum() + 1e-10))

@@ -4,7 +4,9 @@ pointcept/engines/hooks/misc.py).
 IterationTimer, InformationWriter, CheckpointSaver and CheckpointLoader:
 the hooks of configs/_base_/default_runtime.py; PreciseEvaluator and
 RuntimeProfiler, which some configs add. Not ported yet: RuntimeProfilerV2
-and DataCacheOperator.
+and DataCacheOperator. Under a process group only process 0 writes files
+(checkpoints, the profiler's trace); the others wait for it at the end of
+CheckpointSaver's epoch.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ import time
 
 import torch
 
+from ...utils import comm
 from ...utils.checkpoint import filter_state_dict
 from .builder import HOOKS
 from .default import HookBase
@@ -121,11 +124,13 @@ class CheckpointSaver(HookBase):
         model_dir = os.path.join(trainer.save_path, "model")
         path = os.path.join(model_dir, "model_last.pt")
         trainer.save(path, epoch=trainer.epoch + 1)
-        if is_best:
-            shutil.copyfile(path, os.path.join(model_dir, "model_best.pt"))
-        if self.save_freq and (trainer.epoch + 1) % self.save_freq == 0:
-            shutil.copyfile(path, os.path.join(
-                model_dir, f"epoch_{trainer.epoch + 1}.pt"))
+        if comm.is_main_process():
+            if is_best:
+                shutil.copyfile(path, os.path.join(model_dir, "model_best.pt"))
+            if self.save_freq and (trainer.epoch + 1) % self.save_freq == 0:
+                shutil.copyfile(path, os.path.join(
+                    model_dir, f"epoch_{trainer.epoch + 1}.pt"))
+        comm.synchronize()
 
 
 @HOOKS.register_module()
@@ -224,6 +229,8 @@ class RuntimeProfiler(HookBase):
     def _stop(self):
         prof, self._prof = self._prof, None
         prof.__exit__(None, None, None)
+        if not comm.is_main_process():
+            return
         trace_dir = os.path.join(self.trainer.save_path, "profile")
         os.makedirs(trace_dir, exist_ok=True)
         path = os.path.join(trace_dir, "trace.json")

@@ -13,6 +13,11 @@ Per-scene votes are cached as ``<name>_pred.npy`` for resume. With
 ``submit=True`` in the config each scene's prediction is also written in
 its benchmark's submission format (:meth:`SemSegTester.save_submission`).
 
+Under a process group each process tests the scenes ``[rank::world]`` and
+the histograms are gathered, so that every process reports the whole
+split's metrics (only process 0 logs them); each scene's files are written
+by the process that tested it.
+
 Classification (``ClsTester``): one padded forward a sample, its argmax
 against the category; mAcc and allAcc. Part segmentation
 (``PartSegTester``): each shape's views (the dataset's test-mode
@@ -35,7 +40,8 @@ from ..datasets import build_dataset, collate_fn
 from ..datasets.scannet_meta import VALID_CLASS_IDS_20, VALID_CLASS_IDS_200
 from ..models import build_model
 from ..models.point_transformer_v2.convert import load_jax_ckpt, load_jax_npz
-from ..utils import AverageMeter, Registry, get_root_logger, intersection_and_union
+from ..utils import (AverageMeter, Registry, comm, get_root_logger,
+                     intersection_and_union)
 
 TEST = Registry("test")
 
@@ -135,7 +141,9 @@ class SemSegTester(TesterBase):
         union_meter = AverageMeter()
         target_meter = AverageMeter()
         scenes = []
-        for i in range(len(dataset)):
+        # each process tests its share of the scenes
+        scene_ids = range(comm.get_rank(), len(dataset), comm.get_world_size())
+        for pos, i in enumerate(scene_ids):
             data_dict = dataset[i]
             name = data_dict["name"]
             segment = data_dict["segment"]
@@ -165,14 +173,18 @@ class SemSegTester(TesterBase):
             acc = inter.sum() / (target.sum() + 1e-10) if target.sum() > 0 else 1.0
             m_iou = np.mean(intersection_meter.sum / (union_meter.sum + 1e-10))
             logger.info(
-                f"Test: {name} [{i + 1}/{len(dataset)}] "
+                f"Test: {name} [{pos + 1}/{len(scene_ids)}] "
                 f"Acc {acc:.4f} mIoU {np.mean(iou) if len(iou) else 0:.4f} "
                 f"running mIoU {m_iou:.4f}"
             )
 
-        inter = intersection_meter.sum
-        union = union_meter.sum
-        target = target_meter.sum
+        # every process's scene records and histograms (the reference
+        # pickles its meters over gloo, test.py:197-229)
+        scenes = [r for g in comm.all_gather(scenes) for r in g]
+        sums = comm.reduce_dict(dict(inter=intersection_meter.sum,
+                                     union=union_meter.sum,
+                                     target=target_meter.sum), average=False)
+        inter, union, target = sums["inter"], sums["union"], sums["target"]
         iou_class = inter / (union + 1e-10)
         acc_class = inter / (target + 1e-10)
         m_iou = float(np.mean(iou_class))

@@ -29,8 +29,22 @@ The train loader collates with Mix3D (``cfg.mix_prob``,
 (with workers, from each worker's default generator, which the loader
 seeds from its own). The config's top-level ``param_dicts`` become the
 optimizer's parameter groups, as in Pointcept's trainer (the JAX
-package's Trainer hands only ``cfg.optimizer`` on and drops them). Not
-ported yet: data parallelism over several cards.
+package's Trainer hands only ``cfg.optimizer`` on and drops them).
+
+Data parallelism (under a process group, ``engines/launch.py``): as the
+JAX package shards the global batch over its data mesh axis, each process
+takes ``batch_size // world`` scenes a step (and ``num_worker // world``
+loader workers) from a ``DistributedSampler`` seeded by the run's seed,
+which splits each epoch's permutation by rank (``drop_last``; its epoch set
+every epoch); the validation scenes are split as ``[rank::world]``. The
+initial parameters and buffers are broadcast from process 0. The loss is
+the global batch's: every criterion divides by the global denominator
+(``models/losses/misc.py``), so that a process's loss is its share and the
+step sums the processes' gradients and metrics (the loss and its terms,
+``pool_overflow``) in one bucketed ``all_reduce`` after the backward; every
+BatchNorm takes the global batch's statistics (``models/utils.py``,
+``ops/gva.py``). Only process 0 writes the log file, TensorBoard and
+checkpoints; the state dict keeps the reference's names (no wrapper).
 """
 
 from __future__ import annotations
@@ -47,7 +61,7 @@ from ..datasets import build_dataset, point_collate_fn
 from ..models import build_criteria, build_model
 from ..models.utils import DropPath, Dropout
 from ..ops.knn import knn
-from ..utils import get_root_logger, intersection_and_union
+from ..utils import comm, get_root_logger, intersection_and_union
 from ..utils.checkpoint import load_checkpoint, save_checkpoint
 from ..utils.env import set_seed
 from ..utils.events import EventStorage, TensorboardWriter
@@ -59,6 +73,18 @@ from .hooks import HookBase, build_hooks
 
 # score-matrix elements of one chunk of the evaluator's exact 1-NN
 _NN_CHUNK_ELEMENTS = 2**26
+
+
+def train_sampler(dataset, world, rank, seed):
+    """This process's sampler of the train set under a process group of
+    ``world`` processes: each epoch's permutation (seeded by ``seed`` and
+    the epoch, ``set_epoch``) split by rank, the tail that does not divide
+    dropped; None in one process (the loader shuffles itself)."""
+    if world == 1:
+        return None
+    return torch.utils.data.DistributedSampler(
+        dataset, num_replicas=world, rank=rank, shuffle=True, seed=seed,
+        drop_last=True)
 
 
 class TrainerBase:
@@ -140,14 +166,18 @@ class Trainer(TrainerBase):
         self.logger = get_root_logger(
             log_file=os.path.join(self.save_path, "train.log"))
         self.seed = set_seed(cfg.get("seed"))
-        self.logger.info(f"Save path: {self.save_path}; device {self.device}")
+        self.world, self.rank = comm.get_world_size(), comm.get_rank()
+        self.logger.info(f"Save path: {self.save_path}; device {self.device}"
+                         f"; {self.world} process(es)")
 
         self.model = build_model(dict(cfg.model)).to(self.device)
+        comm.broadcast_(list(self.model.parameters())
+                        + list(self.model.buffers()))
         self.criteria = build_criteria(cfg.model.get("criteria", []))
         # stochastic depth and attention dropout draw on the device, from
         # one seeded generator
         self.generator = torch.Generator(device=self.device)
-        self.generator.manual_seed(self.seed)
+        self.generator.manual_seed(self.seed + self.rank)
         for m in self.model.modules():
             if isinstance(m, (DropPath, Dropout)):
                 m.generator = self.generator
@@ -167,7 +197,8 @@ class Trainer(TrainerBase):
         self.step = 0
         self.history: List[Dict[str, float]] = []
         self.writer = (TensorboardWriter(self.save_path)
-                       if cfg.get("enable_tensorboard", True) else None)
+                       if cfg.get("enable_tensorboard", True)
+                       and comm.is_main_process() else None)
         self.register_hooks(cfg.get("hooks"))
 
     def _collate(self, mix_prob=0.0, generator=None):
@@ -181,19 +212,22 @@ class Trainer(TrainerBase):
             ignore_index=cfg.data.get("ignore_index", -1))
 
     def _workers(self):
-        return min(self.cfg.get("num_worker", 0), os.cpu_count() or 1)
+        return min(self.cfg.get("num_worker", 0) // self.world,
+                   os.cpu_count() or 1)
 
     def build_train_loader(self):
         dataset = build_dataset(self.cfg.data.train)
         g = torch.Generator()
-        g.manual_seed(self.seed)
+        g.manual_seed(self.seed + self.rank)
         workers = self._workers()
         # a worker collates with its default generator, seeded by the
         # loader from g; in-process collation draws from g itself
         collate = self._collate(self.cfg.get("mix_prob", 0.0),
                                 None if workers else g)
+        sampler = train_sampler(dataset, self.world, self.rank, self.seed)
         return torch.utils.data.DataLoader(
-            dataset, batch_size=self.cfg.batch_size, shuffle=True, generator=g,
+            dataset, batch_size=self.cfg.batch_size // self.world,
+            shuffle=sampler is None, sampler=sampler, generator=g,
             drop_last=True, num_workers=workers, collate_fn=collate,
             pin_memory=self.device.type == "cuda")
 
@@ -201,9 +235,10 @@ class Trainer(TrainerBase):
         cfg = self.cfg
         if not cfg.get("evaluate", True) or "val" not in cfg.data:
             return None
+        dataset = build_dataset(cfg.data.val)
         return torch.utils.data.DataLoader(
-            build_dataset(cfg.data.val),
-            batch_size=cfg.get("batch_size_val") or 1, shuffle=False,
+            dataset, batch_size=cfg.get("batch_size_val") or 1,
+            sampler=range(self.rank, len(dataset), self.world),
             drop_last=False, num_workers=self._workers(),
             collate_fn=self._collate(), pin_memory=self.device.type == "cuda")
 
@@ -256,21 +291,48 @@ class Trainer(TrainerBase):
         """One optimizer step; returns (the metrics as device tensors, the
         step's logits, detached)."""
         self.model.train()
-        loss, logits, terms = self._loss(batch)
+        with comm.global_batch():  # the losses' denominators are global
+            loss, logits, terms = self._loss(batch)
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        metrics = dict(loss=loss.detach(), **terms,
+                       pool_overflow=self.model.backbone.pool_overflow)
+        if comm.is_distributed():
+            metrics = self._reduce(metrics)
         grad_norm = torch.nn.utils.get_total_norm(
             [p.grad for p in self.model.parameters() if p.grad is not None])
         self.optimizer.step()
         self.scheduler.step()
-        metrics = dict(loss=loss.detach(), **terms, grad_norm=grad_norm,
-                       pool_overflow=self.model.backbone.pool_overflow)
+        metrics["grad_norm"] = grad_norm
         return metrics, None if logits is None else logits.detach()
+
+    def _reduce(self, metrics):
+        """Sum every process's gradients and metrics in one bucketed
+        ``all_reduce`` (a parameter without a gradient here contributes
+        zeros, and has one after it). Returns the summed metrics."""
+        params = [p for p in self.model.parameters() if p.requires_grad]
+        for p in params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        names = list(metrics)
+        vals = [torch.as_tensor(metrics[k], device=self.device).float()
+                for k in names]
+        flat = comm.all_reduce(torch.cat(
+            [p.grad.reshape(-1).float() for p in params]
+            + [v.reshape(1) for v in vals]))
+        o = 0
+        for p in params:
+            p.grad.copy_(flat[o:o + p.numel()].view_as(p.grad))
+            o += p.numel()
+        return {k: flat[o + i] for i, k in enumerate(names)}
 
     def finished(self) -> bool:
         return self.step >= self.max_steps
 
     def run_epoch(self):
+        sampler = self.train_loader.sampler
+        if hasattr(sampler, "set_epoch"):  # each epoch its own permutation
+            sampler.set_epoch(self.epoch)
         timer = Timer()  # the data wait, then the step
         for i, batch in enumerate(self.train_loader):
             self.comm_info["data_seconds"] = timer.seconds()
@@ -355,7 +417,10 @@ class Trainer(TrainerBase):
 
     def save(self, path, epoch):
         """The port's checkpoint: model, optimizer and scheduler state, the
-        number of completed epochs, the step and the best metric."""
+        number of completed epochs, the step and the best metric (written by
+        process 0 only)."""
+        if not comm.is_main_process():
+            return
         save_checkpoint(path, dict(
             model=self.model.state_dict(),
             optimizer=self.optimizer.state_dict(),

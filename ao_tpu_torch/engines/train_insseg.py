@@ -10,7 +10,8 @@ trainer's. The ``InsSegEvaluator`` hook makes each validation scene's
 proposals on the host (``propose_instances`` over the native BFS
 clustering) and scores ScanNet-protocol AP (engines/insseg_eval.py), as
 the reference's InsSegEvaluator does (reference: pointcept/engines/hooks/
-evaluator.py:204-581).
+evaluator.py:204-581). Under a process group each process makes its share
+of the scenes' proposals and gathers them to process 0 before the AP.
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ import numpy as np
 import torch
 
 from ..models.point_group import point_group_loss, propose_instances
+from ..utils import comm
 from .hooks import HOOKS, HookBase
 from .insseg_eval import ap_scores, associate_instances, evaluate_matches
 from .train import Trainer
@@ -97,17 +99,27 @@ class InsSegEvaluator(HookBase):
                     instance_ignore_index=self.instance_ignore_index,
                     min_region_size=self.min_region_size)
                 scenes.append(dict(gt=gt, pred=pr))
+        # every process's scenes on process 0, which scores them and hands
+        # the scores to the others
+        merged = comm.gather((scenes, proposals, cluster_s))
         t0 = time.perf_counter()
-        valid_names = [names[i] for i in range(K)
-                       if i not in self.segment_ignore_index]
-        table = evaluate_matches(scenes, valid_names,
-                                 min_region_size=self.min_region_size)
-        scores = ap_scores(table, valid_names)
+        result = None
+        if comm.is_main_process():
+            scenes = [s for m in merged for s in m[0]]
+            proposals = sum(m[1] for m in merged)
+            cluster_s = sum(m[2] for m in merged)
+            valid_names = [names[i] for i in range(K)
+                           if i not in self.segment_ignore_index]
+            table = evaluate_matches(scenes, valid_names,
+                                     min_region_size=self.min_region_size)
+            result = (ap_scores(table, valid_names), proposals, len(scenes),
+                      cluster_s)
+        scores, proposals, n_scenes, cluster_s = comm.all_gather(result)[0]
         ap_s = time.perf_counter() - t0
         trainer.logger.info(
             f"Val insseg: mAP/AP50/AP25 {scores['all_ap']:.4f}/"
             f"{scores['all_ap_50']:.4f}/{scores['all_ap_25']:.4f}; "
-            f"{proposals} proposals in {len(scenes)} scenes; host seconds: "
+            f"{proposals} proposals in {n_scenes} scenes; host seconds: "
             f"clustering {cluster_s:.3f}, AP table {ap_s:.3f}")
         if trainer.writer is not None:
             ep = trainer.epoch + 1
@@ -117,5 +129,5 @@ class InsSegEvaluator(HookBase):
         trainer.comm_info["current_metric_value"] = scores["all_ap_50"]
         trainer.comm_info["current_metric_name"] = "AP50"
         trainer.comm_info["insseg_result"] = dict(
-            scores, proposals=proposals, scenes=len(scenes),
+            scores, proposals=proposals, scenes=n_scenes,
             cluster_seconds=cluster_s, ap_seconds=ap_s)

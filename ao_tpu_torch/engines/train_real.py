@@ -10,8 +10,10 @@ Per epoch:
    stores original indices in ``instance`` — datasets/s3dis.py real
    mode). As in ao_tpu, the basket stays on the host.
 2. after_epoch (reference :257-582): merge baskets across processes (a
-   host object gather replaces the reference's filesystem-pickle exchange,
-   :266-294); per scene compute prediction + top1-top2 softmax confidence;
+   host object gather to process 0 replaces the reference's
+   filesystem-pickle exchange, :266-294; process 0 refines, the others
+   wait at a barrier, then reload the reset basket and train on the
+   rewritten label files); per scene compute prediction + top1-top2 softmax confidence;
    grid prompt search (0.5 m XY cells x GT-present classes, picking the
    max-confidence "incognita" point — predicted class disagrees with the
    current SAM label — with confidence > 0.9, :361-390); prompt SAM on
@@ -305,6 +307,16 @@ def _refine_one_scene(args):
     return count_updated, float(prompt_acc), int(prompt_idx.size), n_masks
 
 
+def merge_baskets(basket, others):
+    """``basket`` with the rows every basket of ``others`` filled (a row is
+    filled where its first logit is not -100) written over its own."""
+    for other in others:
+        for k, v in other.items():
+            mask = v[:, 0] != -100
+            basket[k][mask] = v[mask]
+    return basket
+
+
 class RealTrainer(Trainer):
     """Trainer with per-epoch SAM label refinement."""
 
@@ -457,12 +469,7 @@ class RealTrainer(Trainer):
         super().after_epoch()
         merged = comm.gather(self.basket, dst=0)
         if comm.is_main_process():
-            basket = self.basket
-            for other in merged[1:]:
-                for k, v in other.items():
-                    mask = v[:, 0] != -100
-                    basket[k][mask] = v[mask]
-            self.refine_labels(basket)
+            self.refine_labels(merge_baskets(self.basket, merged[1:]))
         comm.synchronize()
         self.basket = load_basket(self.basket_path)
 

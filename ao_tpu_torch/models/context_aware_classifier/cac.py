@@ -37,6 +37,7 @@ from torch import nn
 from ..builder import MODELS
 from ..default import call_backbone, takes_discrete_coord
 from ..losses import build_criteria
+from ..losses.misc import global_den
 from ..utils import PointBatchNorm
 
 DEFAULT_CRITERIA = (dict(type="CrossEntropyLoss", loss_weight=1.0,
@@ -155,7 +156,8 @@ def cac_distill_loss(pred, soft, target, mask, smoothness=0.5, eps=0.0):
     get_distill_loss :152-199), batched and masked: the cross entropy of
     ``pred`` against a blend of softmax(``soft``) and the one-hot target,
     averaged per class weighted by the soft prediction's entropy, then over
-    the classes present."""
+    the classes present; under a process group, the global batch's classes
+    and weights (this process's share of the sum)."""
     K = pred.shape[-1]
     soft = soft.detach()
     valid = (target != -1) & mask
@@ -167,6 +169,7 @@ def cac_distill_loss(pred, soft, target, mask, smoothness=0.5, eps=0.0):
     ce = -(torch.log_softmax(pred, dim=-1) * label).sum(-1)
     entropy = -(sm * torch.log(sm + 1e-4)).sum(-1) * valid
     w = entropy[..., None] * onehot
-    per_class = (ce[..., None] * w).sum((0, 1)) / (w.sum((0, 1)) + 1e-4)
-    present = onehot.sum((0, 1)) > 0
+    per_class = (ce[..., None] * w).sum((0, 1)) / (global_den(w.sum((0, 1)))
+                                                   + 1e-4)
+    present = global_den(onehot.sum((0, 1))) > 0
     return torch.where(present, per_class, 0.0).sum() / (present.sum() + 1e-4)

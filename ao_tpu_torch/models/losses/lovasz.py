@@ -6,12 +6,17 @@ Every class is processed at once with static shapes, and the reference's
 classes present among the contributing points. Ignored and padded points
 contribute zero error and zero foreground, which leaves the Lovasz
 extension unchanged (they sort last with error 0).
+
+The loss sorts the errors of the whole batch, so it is not a sum over
+points and does not split across processes: in a train step under a
+process group (``comm.global_batch()``) it raises (ROADMAP.md queue 1).
 """
 
 from __future__ import annotations
 
 import torch
 
+from ...utils import comm
 from .builder import LOSSES
 
 
@@ -36,6 +41,10 @@ class LovaszLoss:
         self.ignore_index = ignore_index
 
     def __call__(self, pred, target, mask=None):
+        if comm.in_global_batch():
+            raise NotImplementedError(
+                "LovaszLoss sorts the errors of the whole batch and is not "
+                "ported to data parallelism: train its configs in one process")
         C = pred.shape[-1]
         pred = pred.reshape(-1, C).float()
         target = target.reshape(-1)

@@ -5,6 +5,15 @@ A loss takes ``(pred, target, mask)``: pred (..., K) logits, target (...)
 integer labels, mask an optional validity mask of the padded points.
 Targets equal to ``ignore_index`` are excluded as well, and the reduction
 is the mean over the contributing points.
+
+Under a process group the mean is the global batch's, as the JAX package
+takes it over its data mesh axis: each process returns its own points' sum
+over the global denominator (:func:`global_den`), so that the sum over the
+processes of their losses, and of their gradients, is the global mean's.
+DiceLoss, a ratio of per-class sums, sums those over the processes
+(differentiably) and returns its share, the loss over the world size.
+That holds inside ``comm.global_batch()``, where the trainer takes its
+step's loss; elsewhere (evaluation) every loss is its own batch's.
 """
 
 from __future__ import annotations
@@ -13,7 +22,16 @@ from typing import Optional, Sequence
 
 import torch
 
+from ...utils import comm
 from .builder import LOSSES
+
+
+def global_den(d):
+    """A loss's denominator (a count or a weight sum, no gradient) summed
+    over the processes of the group inside ``comm.global_batch()`` (the
+    trainer's step); ``d`` itself elsewhere, where each process scores its
+    own batches (the evaluator sums them)."""
+    return comm.all_reduce(d) if comm.in_global_batch() else d
 
 
 def _valid_mask(target, mask, ignore_index):
@@ -22,7 +40,8 @@ def _valid_mask(target, mask, ignore_index):
 
 
 def _mean(x, v):
-    return torch.where(v, x, 0.0).sum() / torch.clamp_min(v.float().sum(), 1.0)
+    return torch.where(v, x, 0.0).sum() / torch.clamp_min(
+        global_den(v.float().sum()), 1.0)
 
 
 @LOSSES.register_module()
@@ -60,9 +79,9 @@ class CrossEntropyLoss:
         if self.weight is not None:
             w = self.weight.to(pred.device)[t] * vf
             return self.loss_weight * (w * nll).sum() / torch.clamp_min(
-                w.sum(), 1e-12)
+                global_den(w.sum()), 1e-12)
         return self.loss_weight * (nll * vf).sum() / torch.clamp_min(
-            vf.sum(), 1.0)
+            global_den(vf.sum()), 1.0)
 
 
 @LOSSES.register_module()
@@ -154,7 +173,10 @@ class DiceLoss:
         vf = v[..., None].float()
         p = (torch.softmax(pred.float(), dim=-1) * vf).reshape(-1, C)
         onehot = (torch.nn.functional.one_hot(t, C) * vf).reshape(-1, C)
-        num = 2.0 * (p * onehot).sum(0) + self.smooth
-        den = ((p ** self.exponent).sum(0) + (onehot ** self.exponent).sum(0)
-               + self.smooth)
-        return self.loss_weight * (1.0 - num / den).mean()
+        share = comm.in_global_batch()  # as in global_den
+        total = comm.all_reduce_grad if share else (lambda x: x)
+        num = 2.0 * total((p * onehot).sum(0)) + self.smooth
+        den = (total((p ** self.exponent).sum(0))
+               + total((onehot ** self.exponent).sum(0)) + self.smooth)
+        world = comm.get_world_size() if share else 1
+        return self.loss_weight * (1.0 - num / den).mean() / world

@@ -26,6 +26,11 @@ reconstruction at the masked points. As in the JAX package:
   far by r1 / r2, upper / lower by the offset's z), pairs closer than r1
   forming a fifth partition, the sum over partitions divided by 4.
 
+Under a process group each process draws its own masks and pairs for its
+scenes, and the losses are the global batch's: the NCE over every matched
+pair of every process, the reconstruction over every masked point
+(this process's share of each sum).
+
 The contrastive loss runs a scene at a time under activation
 checkpointing, so that no tensor larger than a scene's (P, P) similarity
 (268 MB at P = 8192 in f32) lives outside it and nothing of it is kept
@@ -41,6 +46,7 @@ from torch.utils.checkpoint import checkpoint
 from ...ops.knn import knn
 from ..builder import MODELS
 from ..default import call_backbone, takes_discrete_coord
+from ..losses.misc import global_den
 
 _M32 = 0xFFFFFFFF
 
@@ -171,7 +177,7 @@ class MaskedSceneContrast(nn.Module):
     def _reconstruct(self, head, feat1, feat2, t1, t2, m1, m2):
         se = (torch.where(m1[..., None], (head(feat1) - t1) ** 2, 0.0).sum()
               + torch.where(m2[..., None], (head(feat2) - t2) ** 2, 0.0).sum())
-        return se / torch.clamp_min(m1.sum() + m2.sum(), 1.0)
+        return se / torch.clamp_min(global_den(m1.sum() + m2.sum()), 1.0)
 
     def forward(self, view1_origin_coord, view1_coord, view1_feat, view1_mask,
                 view2_origin_coord, view2_coord, view2_feat, view2_mask,
@@ -200,7 +206,7 @@ class MaskedSceneContrast(nn.Module):
         z2 = z2 / (torch.linalg.vector_norm(z2, dim=-1, keepdim=True) + 1e-7)
         c1, c2 = _take(view1_coord, rows), _take(view2_coord, v2_rows)
         pairs = pair_valid.sum()
-        count = torch.clamp_min(pairs.float(), 1.0)
+        count = torch.clamp_min(global_den(pairs.float()), 1.0)
         nce = sum(checkpoint(self._scene_nce, z1[b], z2[b], c1[b], c2[b],
                              pair_valid[b], use_reentrant=False,
                              preserve_rng_state=False)

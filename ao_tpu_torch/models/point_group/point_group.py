@@ -26,7 +26,7 @@ from torch import nn
 from ...ops.cluster import bfs_cluster
 from ..builder import MODELS
 from ..default import call_backbone, takes_discrete_coord
-from ..losses.misc import CrossEntropyLoss
+from ..losses.misc import CrossEntropyLoss, global_den
 from ..utils import PointBatchNorm
 
 
@@ -73,17 +73,19 @@ def point_group_loss(seg_logits, bias_pred, coord, segment, instance,
                      instance_center, mask, ignore_index=-1,
                      instance_ignore_index=-1):
     """CE plus the offsets' L1 and negative cosine, each averaged over the
-    valid points of an instance (reference :78-98)."""
+    valid points of an instance (reference :78-98); under a process group,
+    over the global batch's points (this process's share)."""
     seg_loss = CrossEntropyLoss(ignore_index=ignore_index)(
         seg_logits, segment.long(), mask)
     m = ((instance != instance_ignore_index) & mask).float()
     bias_gt = instance_center - coord
     l1 = (bias_pred - bias_gt).abs().sum(-1)
-    bias_l1_loss = (l1 * m).sum() / (m.sum() + 1e-8)
+    den = global_den(m.sum()) + 1e-8
+    bias_l1_loss = (l1 * m).sum() / den
     pn = bias_pred / (torch.linalg.vector_norm(bias_pred, dim=-1, keepdim=True) + 1e-8)
     gn = bias_gt / (torch.linalg.vector_norm(bias_gt, dim=-1, keepdim=True) + 1e-8)
     cos = -(pn * gn).sum(-1)
-    bias_cos_loss = (cos * m).sum() / (m.sum() + 1e-8)
+    bias_cos_loss = (cos * m).sum() / den
     return {"loss": seg_loss + bias_l1_loss + bias_cos_loss,
             "seg_loss": seg_loss, "bias_l1_loss": bias_l1_loss,
             "bias_cosine_loss": bias_cos_loss}

@@ -7,6 +7,8 @@ from typing import Optional
 import torch
 from torch import nn
 
+from ..utils import comm
+
 
 class PointBatchNorm(nn.Module):
     """BatchNorm over points for padded batches. Train mode normalises with
@@ -16,7 +18,9 @@ class PointBatchNorm(nn.Module):
     ``momentum`` (torch's: the batch statistic's weight; 0.1 by default);
     eval mode normalises with the running statistics. Padded
     rows come out zero. ``norm`` is a BatchNorm1d so that parameter names
-    follow the reference (``<name>.norm.weight`` ...)."""
+    follow the reference (``<name>.norm.weight`` ...). Under a process
+    group the statistics are the global batch's (``comm.global_moments``),
+    as the JAX package's are over its data mesh axis."""
 
     def __init__(self, features: int, eps: float = 1e-5, momentum: float = 0.1):
         super().__init__()
@@ -27,7 +31,9 @@ class PointBatchNorm(nn.Module):
         xf = x.float()
         if self.training:
             dims = tuple(range(x.dim() - 1))
-            if mask is None:
+            if comm.is_distributed():
+                mean, var, cnt = comm.global_moments(xf, mask, dims)
+            elif mask is None:
                 cnt = torch.tensor(float(xf[..., 0].numel()), device=x.device)
                 mean = xf.mean(dims)
                 var = ((xf - mean) ** 2).mean(dims)

@@ -39,6 +39,16 @@ algebra of the TPU package's custom VJP in its backward). Every wrapper
 runs its kernel's plain PyTorch version on CPU tensors and launches the
 kernel, or raises, on CUDA tensors.
 
+Under a process group (data parallelism) the BatchNorm statistics are the
+global batch's, as the TPU package's are over its data mesh axis. The
+kernels run unchanged on each rank's rows; the collectives sit between
+them: :func:`gva_train` sums K4's position moments over the ranks,
+:class:`GVATrain` K5's (sum t, sum t^2, count) before the folds, and its
+backward the gradient of the loss with respect to the weight-BN mean and
+variance (derived from K6's dW1f / db1f sums) before the input-gradient
+correction. K6's parameter sums and moments stay per rank: they are
+parameter gradients, which the train step's gradient reduction sums.
+
 ``gva_reference`` is the unfused composition the model runs where the TPU
 package runs its unfused path (off the card, or without bf16 compute): it
 reproduces the reference's pad semantics (softmax over pad slots, zeroed
@@ -53,6 +63,7 @@ from typing import Dict
 
 import torch
 
+from ..utils import comm
 from . import _native
 from .grouping import grouping
 
@@ -532,14 +543,21 @@ _PARAM_ORDER = ("Wp1", "bp1", "gp", "bp", "Wp2", "bp2", "W1", "b1", "gw", "bw",
                 "W2", "b2")
 
 
-def _bwd_host(k6, d_mu_in, d_var_in, p, mu_w, var_w, n, pe):
+def _bwd_host(k6, d_mu_in, d_var_in, p, mu_w, var_w, n, pe, local=None):
     """The host algebra of gva_slab.py:_bwd_vjp (:627-719) on K6's outputs:
     unfold the weight-BN affine, apply the weight-BN statistics' gradient
     (dt1 = (c0 + c1 * t1) * valid per edge) analytically from K6's moments,
     and unfold the pe-BN affine through the position moments. Returns
     (dk correction (B, Nsrc, C), dq (B, Nq, C), parameter gradients in the
     order of :data:`_PARAM_ORDER`). ``p`` holds the raw parameters, ``pe``
-    the pe-BN batch statistics and position moments of :func:`fold_pe`."""
+    the pe-BN batch statistics and position moments of :func:`fold_pe`.
+
+    ``local`` is None in one process. Under a process group it holds this
+    rank's (count, sum t) of K5: ``mu_w``, ``var_w`` and ``n`` are then the
+    global batch's, the gradient with respect to them is summed over the
+    ranks (one collective of 2G values) before it reaches the edges, and
+    the per-group sum of the edges' gradient is taken over this rank's
+    edges."""
     dkv, dq, flat, mom, qmom = k6
     W1, b1, gw, bw = p["W1"], p["b1"], p["gw"], p["bw"]
     Wp1, bp1, gp, Wp2 = p["Wp1"], p["bp1"], p["gp"], p["Wp2"]
@@ -556,6 +574,8 @@ def _bwd_host(k6, d_mu_in, d_var_in, p, mu_w, var_w, n, pe):
     d_inv = d_sw * gw
     d_mu = -d_cw * sw + d_mu_in
     d_var = d_inv * (-0.5) * inv_w ** 3 + d_var_in
+    if local is not None:
+        d_mu, d_var = comm.all_reduce(torch.stack([d_mu, d_var])).unbind(0)
     c0 = d_mu / n + d_var * (-2.0 * mu_w) / n
     c1 = 2.0 * d_var / n
     # t (folded, as K6 sees it) relates to the unfolded t1 by
@@ -572,7 +592,11 @@ def _bwd_host(k6, d_mu_in, d_var_in, p, mu_w, var_w, n, pe):
     Av = mp[0, 3 * C:].reshape(3, C)
     AT = mp[1:, 3 * C:].reshape(G, 3, C)
     dW1 = dW1 + Rv[:, None] * a0[None, :] + RT * a1[None, :]
-    dsum1 = a0 * n + a1 * (sw * mu_w * n + cw * n)  # sum_e dt1 per group
+    if local is None:
+        dsum1 = a0 * n + a1 * (sw * mu_w * n + cw * n)  # sum_e dt1 per group
+    else:
+        n_loc, st_loc = local
+        dsum1 = a0 * n_loc + a1 * (sw * st_loc + cw * n_loc)
     db1 = db1 + dsum1
     dWp2 = par["dWp2"] + (Pv[:, None] * a0[None, :] + PT * a1[None, :]) @ W1.T
     dbp2 = par["dbp2"] + dsum1 @ W1.T
@@ -622,6 +646,12 @@ class GVATrain(torch.autograd.Function):
                                                   (psum, ppsum, pn))
         st, st2, cnt = gva_stats(src, qrow, idx, valid, A, cA, Wp2, bp2,
                                  W1, b1)[:3]
+        ctx.local = None
+        if comm.is_distributed():
+            G = st.shape[0]
+            ctx.local = (cnt, st)
+            tot = comm.all_reduce(torch.cat([st, st2, cnt.reshape(1)]))
+            st, st2, cnt = tot[:G], tot[G:2 * G], tot[2 * G]
         n = torch.clamp_min(cnt, 1.0)
         mu_w = st / n
         var_w = torch.clamp_min(st2 / n - mu_w * mu_w, 0.0)
@@ -652,7 +682,7 @@ class GVATrain(torch.autograd.Function):
         p = dict(W1=W1, b1=b1, gw=gw, bw=bw, Wp1=Wp1, bp1=bp1, gp=gp, Wp2=Wp2)
         dk_corr, dq, pgrads = _bwd_host(
             k6, d_mu, d_var, p, mu_w, var_w, n,
-            dict(mu_p=mu_p, var_p=var_p, pmean=pmean, pcov=pcov))
+            dict(mu_p=mu_p, var_p=var_p, pmean=pmean, pcov=pcov), ctx.local)
         dkv = k6[0]
         dsrc = torch.cat([dkv[..., :C] + dk_corr, dkv[..., C:],
                           torch.zeros_like(dkv[..., :6])], dim=-1)
@@ -661,14 +691,25 @@ class GVATrain(torch.autograd.Function):
                 None, None) + tuple(pgrads)
 
 
+def global_pos_moments(moments):
+    """K4's (sum pos, sum pos pos^T, count) summed over the ranks of the
+    process group in one collective (unchanged in one process)."""
+    if not comm.is_distributed():
+        return moments
+    psum, ppsum, pn = moments
+    tot = comm.all_reduce(torch.cat([psum, ppsum.reshape(9), pn.reshape(1)]))
+    return tot[:3], tot[3:12].view(3, 3), tot[12]
+
+
 def gva_train(src, qrow, idx, valid, p, pos_moments=None):
     """Train-mode GVA on the kernels: K4 when ``pos_moments`` is None (the
-    first block at a resolution), then :class:`GVATrain`. ``p`` holds the
+    first block at a resolution; its moments summed over the ranks under a
+    process group), then :class:`GVATrain`. ``p`` holds the
     raw parameters (:meth:`GroupedVectorAttention.raw_params`). Returns
     (out, (mu_w, var_w, n_w), (mu_p, var_p, n_p), pos_moments)."""
     if pos_moments is None:
         with torch.no_grad():
-            pos_moments = gva_pos(src, qrow, idx, valid)
+            pos_moments = global_pos_moments(gva_pos(src, qrow, idx, valid))
     out, mu_w, var_w, n_w, mu_p, var_p, n_p = GVATrain.apply(
         src, qrow, idx, valid, *pos_moments, *(p[k] for k in _PARAM_ORDER))
     return out, (mu_w, var_w, n_w), (mu_p, var_p, n_p), pos_moments
@@ -682,7 +723,8 @@ def gva_reference(k, v, q, coord6, idx, valid, mask, p, dtype, train=False):
     running statistics and returns out; train mode uses batch statistics,
     whose moments count every slot of a valid query as torch's unmasked
     BatchNorm1d does, and returns (out, (mu_w, var_w, n_w), (mu_p, var_p,
-    n_p)). Differentiable by autograd.
+    n_p)), over the global batch under a process group. Differentiable by
+    autograd.
 
     k, v, q (B, N, C) in the compute dtype; coord6 (B, N, 6) bf16 packed
     coordinates; idx/valid (B, N, S); mask (B, N); p the raw parameters
@@ -704,10 +746,11 @@ def gva_reference(k, v, q, coord6, idx, valid, mask, p, dtype, train=False):
 
     if train:
         stat_m = mask[:, :, None].expand(B, N, S).float()[..., None]
-        n_p = stat_m.sum()
         with torch.no_grad():
-            moments = (pos.sum((0, 1, 2)),
-                       torch.einsum("bnsi,bnsj->ij", pos, pos), n_p)
+            moments = global_pos_moments(
+                (pos.sum((0, 1, 2)), torch.einsum("bnsi,bnsj->ij", pos, pos),
+                 stat_m.sum()))
+        n_p = moments[2]
         A, cA, mu_p, var_p, _, _ = fold_pe(p["Wp1"], p["bp1"], p["gp"],
                                            p["bp"], moments)
     else:
@@ -718,7 +761,9 @@ def gva_reference(k, v, q, coord6, idx, valid, mask, p, dtype, train=False):
     r = k_g - qf[:, :, None] + peb
     v2 = v_g + peb
     t1 = mm(r, p["W1"]) + p["b1"]
-    if train:
+    if train and comm.is_distributed():
+        mu_w, var_w, n = comm.global_moments(t1, stat_m[..., 0] > 0, (0, 1, 2))
+    elif train:
         n = torch.clamp_min(stat_m.sum(), 1.0)
         mu_w = (t1 * stat_m).sum((0, 1, 2)) / n
         var_w = (((t1 - mu_w) ** 2) * stat_m).sum((0, 1, 2)) / n

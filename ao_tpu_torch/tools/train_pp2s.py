@@ -7,12 +7,14 @@ dataset runs in weak mode over the PP2S pseudo-labels).
         --options save_path=<dir> data.train.weak_path=<labels> ...
 
 Runs on the card unless ``--device cpu`` is given; ``main`` returns the
-trainer.
+trainer. ``--num-devices`` / ``torchrun`` as for ``tools.train``.
 """
 
 from __future__ import annotations
 
-from ..engines import Trainer, default_argument_parser, default_config_parser
+from ..engines import (Trainer, default_argument_parser, default_config_parser,
+                       launch, launch_args)
+from .train import train_worker
 
 
 def main(argv=None):
@@ -21,9 +23,8 @@ def main(argv=None):
     cfg.data.train.weak = True
     cfg.data.train.setdefault("mode", "pp2s")
     cfg.data.train.setdefault("weak_path", "data/sam_labels")
-    trainer = Trainer(cfg, device=args.device)
-    trainer.train()
-    return trainer
+    return launch(train_worker, cfg=(Trainer, cfg, args.device),
+                  **launch_args(args))
 
 
 if __name__ == "__main__":

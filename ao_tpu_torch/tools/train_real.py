@@ -12,20 +12,28 @@ is off. Every epoch ends with the config's hooks, then one refinement
 round (``RealTrainer.after_epoch``). ``main`` returns the trainer, whose
 ``history`` holds the per-step records (``basket_seconds``: the basket
 fill's share of ``step_seconds``) and ``refine_history`` the rounds.
+``--num-devices`` / ``torchrun`` as for ``tools.train``.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-from ..engines import default_argument_parser, default_config_parser
+from ..engines import (default_argument_parser, default_config_parser, launch,
+                       launch_args, local_device)
 from ..engines.train_real import RealTrainer
 
 
 def main(argv=None):
     args = default_argument_parser(__doc__.splitlines()[0]).parse_args(argv)
     cfg = default_config_parser(args.config_file, args.options)
-    trainer = RealTrainer(cfg, device=args.device)
+    return launch(real_worker, cfg=(cfg, args.device), **launch_args(args))
+
+
+def real_worker(cfg, device):
+    """One process's REAL training (its basket gathered to process 0 at
+    every refinement round); returns the trainer."""
+    trainer = RealTrainer(cfg, device=local_device(device))
     trainer.train()
     hist = trainer.history[1:]  # the first step pays the warm-up
     if hist:

@@ -157,10 +157,20 @@ class Config:
         return self._filename
 
     def __getattr__(self, name):
+        if name.startswith("__"):  # e.g. pickle's probes before _cfg_dict is set
+            raise AttributeError(name)
         return getattr(self._cfg_dict, name)
 
     def __setattr__(self, name, value):
         self._cfg_dict[name] = _to_configdict(value)
+
+    # picklable, so that the launcher can hand a config to its processes
+    def __getstate__(self):
+        return self._cfg_dict, self._filename
+
+    def __setstate__(self, state):
+        object.__setattr__(self, "_cfg_dict", state[0])
+        object.__setattr__(self, "_filename", state[1])
 
     def __getitem__(self, name):
         return self._cfg_dict[name]

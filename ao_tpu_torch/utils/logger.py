@@ -1,7 +1,8 @@
 """Console and file logging (port of ao_tpu/utils/logger.py).
 
-``get_root_logger`` returns a logger that writes to stdout on process 0
-and optionally to a file on every process; repeated calls reuse handlers.
+``get_root_logger`` returns a logger that writes to stdout and optionally
+to a file on process 0 of the process group (the only process without
+one) and only warnings elsewhere; repeated calls reuse handlers.
 """
 
 from __future__ import annotations
@@ -25,7 +26,9 @@ def get_root_logger(
     if key in _initialized:
         return logger
     if process_index is None:
-        process_index = int(os.environ.get("AO_PROCESS_INDEX", "0"))
+        from .comm import get_rank
+
+        process_index = get_rank()
 
     logger.setLevel(log_level if process_index == 0 else logging.WARNING)
     logger.propagate = False
@@ -39,7 +42,7 @@ def get_root_logger(
         sh = logging.StreamHandler(stream=sys.stdout)
         sh.setFormatter(fmt)
         logger.addHandler(sh)
-    if log_file is not None:
+    if log_file is not None and process_index == 0:
         os.makedirs(os.path.dirname(os.path.abspath(log_file)), exist_ok=True)
         fh = logging.FileHandler(log_file, mode="a")
         fh.setFormatter(fmt)

@@ -232,6 +232,35 @@ ST-v1m2) and OctFormer-v1m1 at those of their ScanNet configs.
    steps with both groups' lr each step, one timed for the CPE's exact
    kNN's share, and a 2-view scene test. ``--octformer`` runs it alone,
    with a traced step.
+16. PointContrast phase: ScanNet-layout scenes written here as .sens
+   streams (version 4, 640 x 480 zlib depth and JPEG colour, ScanNet's
+   depth intrinsics), each frame rendered from a make_room room (0.02 m)
+   by a camera turning 20 degrees a frame, so that neighbouring frames
+   overlap; the port's preprocessor
+   (ao_tpu_torch.datasets.preprocessing.preprocess_scannet_pair) over them;
+   then 2 steps of configs/scannet/pretrain-msc-v1m1-1-spunet-pointcontrast.py
+   at its full width (SpUNet, in_channels 3) through
+   ao_tpu_torch.tools.train_pretrain at the config's B=32 pairs (under
+   ``--pointcontrast`` the first of B = 32, 24, 16 that fits, the peak
+   reached printed for each that does not): losses finite, pairs matched,
+   parameters moved; the pairs kept, the points a view, the step seconds
+   and the peak memory printed. ``--pointcontrast`` runs it alone.
+17. Data-parallel phase (one card): the main path's config at full width
+   (bf16) on four rooms at a global B=4 x 81920, SGD, no stochastic depth,
+   each scene's augmentation seeded by its index: one process twice (its
+   run-to-run spread), then two processes over gloo on the card through
+   ao_tpu_torch.engines.launch (B=2 each; process 0 holds K1-K6 of its
+   first step against their plain versions at these shapes), 3 steps; at
+   every step the loss, the parameters (all tensors together) and the
+   running statistics within max(3 x the spread, a floor) of the single
+   process, K1-K6 launched per step by each process as by the single one;
+   then an NCCL group of one for 2 steps. The collectives a step and their
+   seconds in a timed step printed. ``--ddp`` runs it alone;
+   ``--ddp-faults`` adds two-process runs with a fault planted in the
+   gradient reduction (doubled, or left unreduced), each of which must
+   fall outside the band; ``--ddp-nccl 2 4`` runs the single process and
+   2 and 4 processes over NCCL, one card each (on a machine with 4
+   cards), held in the same band.
 
 Each main path (the slice phase, the train phase, the REAL run, the
 ScanNet test and train runs, every train and test run of phases 8-15)
@@ -239,8 +268,8 @@ runs with every kernel's launch count set to 0 just before it and read
 just after, and fails if one of its kernels never launched. The last
 three lines are the card, the kernels' JSON record (one entry per kernel,
 then one per new instance of the ScanNet config, then one per kernel of
-the outdoor, PT-v2m1, sparse, CAC, PT-v1, Swin3D, Stratified and
-OctFormer paths at its heaviest shape there, then FPS) and {"ok": true,
+the outdoor, PT-v2m1, sparse, CAC, PT-v1, Swin3D, Stratified, OctFormer
+and data-parallel paths at its heaviest shape there, then FPS) and {"ok": true,
 "device": {...}}.
 """
 
@@ -3650,6 +3679,549 @@ def _drive(path_kernels, fn):
     return out, launches
 
 
+# ---------------------------------------------------------------------------
+# phase 16: PointContrast on ScanNet frame pairs
+
+POINTCONTRAST_CONFIG = os.path.join(
+    ROOT, "configs", "scannet", "pretrain-msc-v1m1-1-spunet-pointcontrast.py")
+# ScanNet's depth camera (640 x 480; the intrinsics of its scene0000_00)
+SENS_HW = (480, 640)
+SENS_INTRINSIC = np.array([[577.590698, 0.0, 318.905426, 0.0],
+                           [0.0, 578.729797, 242.683609, 0.0],
+                           [0.0, 0.0, 1.0, 0.0], [0.0, 0.0, 0.0, 1.0]])
+# (make_room seed, room size in m) of each scene and its frames (34 pairs
+# over the config's overlap 0.3); the batches (pairs a step) that
+# --pointcontrast tries in turn from the config's own 32 until one fits,
+# and the full run's
+PAIR_SCENES = ((21, (4.8, 4.0, 2.6)), (22, (5.2, 4.4, 2.8)),
+               (23, (5.0, 4.2, 2.7)))
+PAIR_FRAMES = 8
+PAIR_SPACING = 0.02
+POINTCONTRAST_BATCHES = (32, 24, 16)
+POINTCONTRAST_BATCH = 32
+
+
+def write_sens(path, poses, depths, colors, intrinsic):
+    """A ScanNet ``.sens`` stream, version 4: the depth intrinsics as
+    colour and depth intrinsics, JPEG colour, zlib 16-bit depth (mm) at
+    the colour's size, each frame's camera-to-world pose."""
+    import io
+    import struct
+    import zlib
+
+    from PIL import Image
+
+    with open(path, "wb") as f:
+        f.write(struct.pack("I", 4))
+        name = b"synthetic"
+        f.write(struct.pack("Q", len(name)) + name)
+        for m in (intrinsic, np.eye(4), intrinsic, np.eye(4)):
+            f.write(np.asarray(m, np.float32).tobytes())
+        f.write(struct.pack("ii", 2, 1))  # jpeg colour, zlib depth
+        h, w = depths[0].shape
+        f.write(struct.pack("IIII", w, h, w, h))
+        f.write(struct.pack("f", 1000.0))
+        f.write(struct.pack("Q", len(poses)))
+        for pose, depth, color in zip(poses, depths, colors):
+            f.write(np.asarray(pose, np.float32).tobytes())
+            f.write(struct.pack("QQ", 0, 0))
+            buf = io.BytesIO()
+            Image.fromarray(color).save(buf, format="JPEG")
+            cb, db = buf.getvalue(), zlib.compress(depth.astype(np.uint16).tobytes())
+            f.write(struct.pack("QQ", len(cb), len(db)) + cb + db)
+
+
+def render_frame(room, pose, intrinsic=SENS_INTRINSIC, hw=SENS_HW):
+    """(depth uint16 in mm, colour uint8 (h, w, 3)) of a room's points seen
+    by a camera (x right, y down, z forward) at ``pose`` (camera to world),
+    the nearest point winning each pixel; pixels no point reaches stay 0."""
+    h, w = hw
+    R, t = pose[:3, :3], pose[:3, 3]
+    cam = (room["coord"] - t) @ R
+    keep = cam[:, 2] > 0.1
+    cam, col = cam[keep], room["color"][keep]
+    u = np.round(intrinsic[0, 0] * cam[:, 0] / cam[:, 2] + intrinsic[0, 2])
+    v = np.round(intrinsic[1, 1] * cam[:, 1] / cam[:, 2] + intrinsic[1, 2])
+    ok = (u >= 0) & (u < w) & (v >= 0) & (v < h) & (cam[:, 2] < 60.0)
+    pix = (v[ok] * w + u[ok]).astype(np.int64)
+    z, col = cam[ok, 2], col[ok]
+    order = np.argsort(-z, kind="stable")  # the nearest written last
+    depth = np.zeros(h * w, np.uint16)
+    color = np.zeros((h * w, 3), np.uint8)
+    depth[pix[order]] = np.round(z[order] * 1000.0).astype(np.uint16)
+    color[pix[order]] = col[order].astype(np.uint8)
+    return depth.reshape(h, w), color.reshape(h, w, 3)
+
+
+def sens_frames(seed, size, frames, spacing=PAIR_SPACING):
+    """(poses, depths, colours) of ``frames`` views of :func:`make_room`
+    (seed, size, spacing) from 1.4 m above its floor, off its centre,
+    turning 20 degrees a frame, so that each view overlaps the next."""
+    room = make_room(seed, size, spacing)
+    rng = np.random.default_rng(seed)
+    eye = np.array([size[0] * 0.45, size[1] * 0.5, 1.4])
+    yaw0 = rng.uniform(0, 2 * np.pi)
+    poses, depths, colors = [], [], []
+    for f in range(frames):
+        yaw = yaw0 + np.deg2rad(20.0) * f
+        fwd = np.array([np.cos(yaw), np.sin(yaw), 0.0])
+        right = np.array([np.sin(yaw), -np.cos(yaw), 0.0])
+        pose = np.eye(4)
+        pose[:3, :3] = np.stack([right, [0.0, 0.0, -1.0], fwd], axis=1)
+        pose[:3, 3] = eye
+        depth, color = render_frame(room, pose)
+        poses.append(pose)
+        depths.append(depth)
+        colors.append(color)
+    return poses, depths, colors
+
+
+def write_pair_scenes(raw, scenes=PAIR_SCENES, frames=PAIR_FRAMES,
+                      spacing=PAIR_SPACING):
+    """ScanNet-layout scenes ``<raw>/scene<i>_00/scene<i>_00.sens`` of
+    :func:`sens_frames`, one per (seed, size) of ``scenes``."""
+    for i, (seed, size) in enumerate(scenes):
+        scene = os.path.join(raw, f"scene{i:04d}_00")
+        os.makedirs(scene, exist_ok=True)
+        write_sens(os.path.join(scene, f"scene{i:04d}_00.sens"),
+                   *sens_frames(seed, size, frames, spacing), SENS_INTRINSIC)
+
+
+def pair_setup(workdir, scenes=PAIR_SCENES, frames=PAIR_FRAMES,
+               spacing=PAIR_SPACING):
+    """:func:`write_pair_scenes` under ``<workdir>/raw``, then the port's
+    preprocessor over them (every frame kept) into
+    ``<workdir>/scannet_pair``. Returns (the output root, the
+    preprocessor's seconds)."""
+    from ao_tpu_torch.datasets.preprocessing import preprocess_scannet_pair
+
+    write_pair_scenes(os.path.join(workdir, "raw"), scenes, frames, spacing)
+    out = os.path.join(workdir, "scannet_pair")
+    t = time.perf_counter()
+    preprocess_scannet_pair.main(["--dataset-root", os.path.join(workdir, "raw"),
+                                  "--output-root", out, "--frame-skip", "1"])
+    return out, time.perf_counter() - t
+
+
+# ---------------------------------------------------------------------------
+# data parallelism (phase 17; tests/test_torch_ddp.py runs the same
+# recorder on the CPU over gloo)
+
+
+class SeededItems:
+    """A dataset's ``prepare_train_data`` with the transforms' draws (torch's
+    default CPU generator, and numpy's) seeded by the scene's index, so
+    that a scene takes the same augmentation whichever process loads it,
+    and in whatever order."""
+
+    def __init__(self, fn, seed):
+        self.fn, self.seed = fn, seed
+
+    def __call__(self, idx):
+        s = (self.seed * 7919 + idx) % 2**32
+        torch.default_generator.manual_seed(s)
+        np.random.seed(s)
+        return self.fn(idx)
+
+
+def record_worker(cfg, device):
+    """One process of a recorded run (the launcher's ``main_func``): the
+    Trainer on this process's device, its train items seeded by
+    :class:`SeededItems`, trained as ``tools.train`` trains it; every step
+    records its (global) loss, seconds, kernel launches, collectives, and
+    the parameters and running statistics after it (on the CPU). Options
+    of ``cfg``: ``record_path`` (a directory: ``rank<r>.pt`` is written
+    there), ``record_batches`` (keep each step's batch), ``record_timed``
+    (the step whose collectives are timed, their seconds beside it),
+    ``record_hold`` (process 0 holds K1-K6 of its first step against
+    their plain versions at its own shapes, as phase 4 does),
+    ``record_fault`` (a fault of :func:`plant_fault` in the step's gradient
+    reduction, to show that the comparison catches it)."""
+    from contextlib import nullcontext
+
+    from ao_tpu_torch.engines import Trainer, local_device
+    from ao_tpu_torch.utils import comm
+
+    device = local_device(device)
+    cuda = device.type == "cuda"
+    trainer = Trainer(cfg, device=device)
+    ds = trainer.train_loader.dataset
+    ds.prepare_train_data = SeededItems(ds.prepare_train_data, cfg.seed)
+    wrappers = _wrappers()
+    steps, holds, init = [], [], {}
+    inner = trainer._step
+
+    def snapshot():
+        return dict(
+            params={n: p.detach().float().cpu().clone()
+                    for n, p in trainer.model.named_parameters()},
+            stats={n: b.detach().float().cpu().clone()
+                   for n, b in trainer.model.named_buffers() if "running" in n})
+
+    def step(batch):
+        if not steps:
+            init.update(snapshot())
+        before = {n: w.launches for n, w in wrappers.items()}
+        comm.reset_counts()
+        cap = None
+        if cfg.get("record_hold") and comm.is_main_process() and not steps:
+            cap = Capture().wrap_path(TRAIN_KERNELS)
+        timed = len(steps) == cfg.get("record_timed", -1)
+        if cuda:
+            torch.cuda.synchronize(device)
+        t = time.perf_counter()
+        try:
+            with comm.timed() if timed else nullcontext():
+                out = inner(batch)
+                loss = float(out[0]["loss"])
+            if cuda:
+                torch.cuda.synchronize(device)
+        finally:
+            if cap is not None:
+                cap.restore()
+        rec = dict(
+            loss=loss, seconds=time.perf_counter() - t, timed=timed,
+            grad_norm=float(out[0]["grad_norm"]),
+            collectives=comm.COUNTS["collectives"],
+            collective_seconds=comm.COUNTS["seconds"],
+            launches={n: w.launches - before[n] for n, w in wrappers.items()},
+            **snapshot())
+        if cfg.get("record_batches"):
+            rec["batch"] = {k: v.clone() for k, v in batch.items()
+                            if torch.is_tensor(v)}
+        steps.append(rec)
+        if cap is not None:
+            holds.extend(hold_captured(cap, f"train, rank 0 of "
+                                            f"{comm.get_world_size()}"))
+        return out
+
+    trainer._step = step
+    if cfg.get("record_fault"):
+        plant_fault(trainer, cfg.record_fault)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(device)
+    trainer.train()
+    torch.save(dict(
+        rank=comm.get_rank(), world=comm.get_world_size(), steps=steps,
+        init=init, holds=holds, val=trainer.comm_info.get("val_result"),
+        history=trainer.history,
+        peak_gib=torch.cuda.max_memory_allocated(device) / 2**30 if cuda else 0.0),
+        os.path.join(cfg.record_path, f"rank{comm.get_rank()}.pt"))
+
+
+def plant_fault(trainer, fault):
+    """Break ``trainer``'s gradient reduction (its ``_reduce``) on purpose:
+    ``"double"`` doubles the summed gradients, ``"unreduced"`` leaves each
+    process with its own (its share of the global loss's gradient). The
+    metrics are still summed, so every process logs the global loss."""
+    if fault not in DDP_FAULTS:
+        raise ValueError(f"record_fault {fault!r}: one of {DDP_FAULTS}")
+    reduce = trainer._reduce
+
+    def faulty(metrics):
+        params = [p for p in trainer.model.parameters() if p.requires_grad]
+        own = [torch.zeros_like(p) if p.grad is None else p.grad.clone()
+               for p in params]
+        out = reduce(metrics)
+        with torch.no_grad():
+            for p, g in zip(params, own):
+                if fault == "double":
+                    p.grad.mul_(2.0)
+                else:
+                    p.grad.copy_(g)
+        return out
+
+    trainer._reduce = faulty
+
+
+def run_recorded(options, world, out, device="cuda", backend=None,
+                 config=BASE_CONFIG):
+    """A recorded run (:func:`record_worker`) of ``config`` with the
+    KEY=VALUE ``options`` over ``world`` processes started by the port's
+    launcher (in this process for one); returns every rank's record."""
+    from ao_tpu_torch.engines import default_config_parser, launch
+    from ao_tpu_torch.utils import DictAction
+
+    os.makedirs(out, exist_ok=True)
+    opts = {k: DictAction._parse_value(v) for k, v in
+            (o.partition("=")[::2] for o in options)}
+    cfg = default_config_parser(config, dict(opts, record_path=out))
+    launch(record_worker, num_devices_per_machine=world, cfg=(cfg, device),
+           device=device, backend=backend)
+    return [torch.load(os.path.join(out, f"rank{r}.pt"), weights_only=False)
+            for r in range(world)]
+
+
+def compare_records(a, b):
+    """Per step of two recorded runs (records of :func:`record_worker`) of
+    one global batch: the loss's relative gap; for the parameters and for
+    the running statistics the largest over tensors of
+    |a - b| / max(|b - b_before|, 1e-2 * the step's largest change of any
+    tensor) in Frobenius norm, b_before being the tensor before the step:
+    the gap over the step's own change, floored for tensors that barely
+    move (the Linear biases ahead of a BatchNorm, whose gradient is zero up
+    to rounding); and ``params_all``, the parameters' gap over the step's
+    change with every tensor together, sum |a - b| / sum |b - b_before|."""
+    rows, prev = [], b["init"]
+    for i, (sa, sb) in enumerate(zip(a["steps"], b["steps"])):
+        def gaps(key):
+            change = {n: float(torch.linalg.vector_norm(vb - prev[key][n]))
+                      for n, vb in sb[key].items()}
+            gap = {n: float(torch.linalg.vector_norm(sa[key][n] - vb))
+                   for n, vb in sb[key].items()}
+            floor = 1e-2 * max(change.values())
+            worst = max(gap[n] / max(change[n], floor, 1e-30) for n in gap)
+            return worst, sum(gap.values()) / max(sum(change.values()), 1e-30)
+
+        params, params_all = gaps("params")
+        rows.append(dict(step=i + 1, loss_a=sa["loss"], loss_b=sb["loss"],
+                         loss_rel=abs(sa["loss"] - sb["loss"]) / abs(sb["loss"]),
+                         params=params, params_all=params_all,
+                         stats=gaps("stats")[0]))
+        prev = sb
+    return rows
+
+
+def pointcontrast_phase(device, seed, t0, card="",
+                        batches=(POINTCONTRAST_BATCH,)):
+    """Phase 16: PointContrast. ScanNet-layout .sens scenes written here
+    (:data:`PAIR_SCENES`, :data:`PAIR_FRAMES` frames each, 640 x 480 zlib
+    depth and JPEG colour), the port's preprocessor over them, then 2
+    steps of the PointContrast config at its full width (SpUNet,
+    in_channels 3) through ao_tpu_torch.tools.train_pretrain at the first
+    of ``batches`` (pairs a step) that fits: losses finite, pairs matched
+    every step, parameters moved. Prints the pairs kept, the points a view,
+    the step seconds and the peak memory."""
+    from ao_tpu_torch.datasets import build_dataset
+    from ao_tpu_torch.utils import Config
+
+    work = tempfile.mkdtemp(prefix="ao_chip_pairs_")
+    t = time.perf_counter()
+    root, pre_s = pair_setup(work)
+    cfg = Config.fromfile(POINTCONTRAST_CONFIG)
+    kept = len(build_dataset(dict(cfg.data.train, data_root=root)).data_list)
+    with open(os.path.join(root, "overlap30.txt")) as f:
+        listed = sum(1 for _ in f)
+    log(t0, f"pointcontrast: {len(PAIR_SCENES)} scenes x {PAIR_FRAMES} frames "
+            f"written and preprocessed in {time.perf_counter() - t:.1f} s "
+            f"(preprocessor {pre_s:.1f} s); {kept} pairs over the config's "
+            f"overlap 0.3 ({listed} in overlap30.txt)")
+    if kept < max(batches):
+        raise RuntimeError(f"{kept} pairs, fewer than a batch of {max(batches)}")
+
+    def train(batch):
+        options = [f"save_path={os.path.join(work, f'exp{batch}')}",
+                   f"data.train.data_root={root}", f"batch_size={batch}",
+                   "max_steps=2", "num_worker=8", f"seed={seed}",
+                   "enable_tensorboard=False"]
+        trainer = run_train(device, options, POINTCONTRAST_CONFIG,
+                            "train_pretrain")
+        return trainer, torch.cuda.max_memory_allocated() / 2**30
+
+    batch, (trainer, peak_gb) = fit_batch(batches, "pointcontrast train", card,
+                                          train)
+    hist = trainer.history
+    for r in hist:
+        if not (np.isfinite(r["loss"]) and np.isfinite(r["nce_loss"])
+                and r["pairs"] > 0):
+            raise RuntimeError(f"pointcontrast step {r}")
+    changed, n_params = check_train(trainer, 2)
+    views = 2 * batch
+    print(f"pointcontrast: B={batch} pairs a step, points a view "
+          f"{[round(r['points'] / views) for r in hist]} (mean), matched pairs "
+          f"{[int(r['pairs']) for r in hist]}; losses "
+          f"{[round(r['loss'], 5) for r in hist]}; step seconds "
+          f"{[round(r['step_seconds'], 4) for r in hist]}, data wait "
+          f"{[round(r['data_seconds'], 4) for r in hist]}; peak memory "
+          f"{peak_gb:.2f} GiB; {changed}/{n_params} parameter tensors changed;"
+          f" card {card}", flush=True)
+    del trainer
+    torch.cuda.empty_cache()
+    log(t0, "pointcontrast phase done")
+
+
+# phase 17: four train rooms (the train phase's three and one more), two a
+# process; the floors of the band within which a data-parallel run must
+# agree with the single process at every step: the loss's relative gap,
+# the parameters' gap over the step's change with every tensor together
+# (compare_records' params_all) and the running statistics' worst tensor's.
+# On an H100 in bf16 one process's spread between two runs is 0.10-0.16
+# of a step in the parameters and 3e-5-5e-5 in the loss, while a doubled
+# or an unreduced gradient puts them at 0.79-1.05 and above 1e-3
+DDP_ROOMS = TRAIN_ROOMS + ((4, (6.2, 5.2, 3.0)),)
+DDP_STEPS = 3
+DDP_FLOOR = dict(loss_rel=2e-4, params_all=0.25, stats=2e-2)
+# the faults --ddp-faults plants in a two-process run's gradient reduction
+DDP_FAULTS = ("double", "unreduced")
+
+
+def ddp_hold(label, ranks, one, band):
+    """Every rank's record of a data-parallel run against the single
+    process's, step by step, printed beside the band; returns the (rank,
+    step, key) of every gap outside it."""
+    out = []
+    for rec in ranks:
+        for row, lim in zip(compare_records(rec, one), band):
+            print(f"ddp {label}: rank {rec['rank']} step {row['step']} loss "
+                  f"{row['loss_a']:.6f} vs {row['loss_b']:.6f} (rel "
+                  f"{row['loss_rel']:.3g}), params {row['params_all']:.3g} "
+                  f"(worst tensor {row['params']:.3g}), stats "
+                  f"{row['stats']:.3g}; band loss_rel {lim['loss_rel']:.3g}, "
+                  f"params {lim['params_all']:.3g}, stats {lim['stats']:.3g}",
+                  flush=True)
+            out += [(rec["rank"], row["step"], k) for k in DDP_FLOOR
+                    if row[k] > lim[k]]
+    return out
+
+
+def ddp_summary(label, ranks, one):
+    """Prints a data-parallel run's step seconds against the single
+    process's, its collectives a step and their seconds in its timed step
+    (each synchronised), its peak memory and losses."""
+    timed = [s for s in ranks[0]["steps"] if s["timed"]][0]
+    print(f"ddp {label}: {len(ranks)} processes, B={4 // len(ranks)} x 81920 "
+          f"each: step seconds "
+          f"{[[round(s['seconds'], 4) for s in r['steps']] for r in ranks]} "
+          f"against one process at B=4 "
+          f"{[round(s['seconds'], 4) for s in one['steps']]}; collectives a "
+          f"step {[s['collectives'] for s in ranks[0]['steps']]}, "
+          f"{timed['collective_seconds']:.4f} s of the timed step's "
+          f"{timed['seconds']:.4f} s (share "
+          f"{timed['collective_seconds'] / timed['seconds']:.3f}); peak memory "
+          f"{[round(r['peak_gib'], 2) for r in ranks]} GiB a process, "
+          f"{one['peak_gib']:.2f} GiB one; losses "
+          f"{[round(s['loss'], 6) for s in ranks[0]['steps']]}", flush=True)
+
+
+def ddp_phase(device, seed, t0, card="", gloo=True, faults=(), nccl=(),
+              group_of_one=True):
+    """Phase 17: data parallelism. The main path's config (full width,
+    bf16) on :data:`DDP_ROOMS` at a global B=4 x 81920, one step an epoch,
+    for :data:`DDP_STEPS` steps, with SGD in place of AdamW (whose first
+    updates are the gradients' signs, so that a gradient zero up to
+    rounding flips sign between any two runs), no stochastic depth, and
+    each scene's augmentation seeded by its index (:class:`SeededItems`).
+    One process at B=4, twice: its run-to-run spread (K6 sums with
+    atomics) sets the band max(3 x spread, :data:`DDP_FLOOR`) per step.
+    Then, each held in that band at every step (loss, parameters, running
+    statistics) with K1-K6 launched per step by every process as by the
+    single one: with ``gloo``, two processes over gloo on one card at B=2
+    each through the port's launcher, process 0 holding K1-K6 of its first
+    step against their plain versions at its own shapes; for each world of
+    ``nccl``, that many processes over NCCL, one card each; for each fault
+    of ``faults`` (:data:`DDP_FAULTS`), two gloo processes with the fault
+    planted in their gradient reduction, which must fall outside the band
+    in the loss or the parameters. With ``group_of_one``, one process in
+    an NCCL group of one through the launcher's worker, 2 steps. Prints
+    the collectives a step and their share of a timed step. Returns (the
+    kernel rows held, the launches by path)."""
+    from ao_tpu_torch.engines import default_config_parser
+    from ao_tpu_torch.engines.launch import distributed_worker, free_port
+    from ao_tpu_torch.utils import DictAction
+
+    work = tempfile.mkdtemp(prefix="ao_chip_ddp_")
+    rooms = [make_room(s, size) for s, size in DDP_ROOMS]
+    # no loader workers: one step an epoch would start them anew each step
+    _, base = train_setup(rooms, work, batch_size=4, max_steps=DDP_STEPS,
+                          workers=0, seed=seed)
+    base += ["model.backbone.drop_path_rate=0.0", f"epoch={DDP_STEPS}",
+             f"eval_epoch={DDP_STEPS}", "record_timed=2",
+             "optimizer={'type': 'SGD', 'lr': 0.006, 'momentum': 0.9, "
+             "'weight_decay': 0.0001}"]
+    log(t0, f"ddp rooms: {[len(r['coord']) for r in rooms]} points")
+
+    def recorded(name, world, backend, *extra):
+        torch.cuda.empty_cache()
+        out = os.path.join(work, name)
+        ranks = run_recorded(base + [f"save_path={out}", *extra], world, out,
+                             device="cuda", backend=backend)
+        log(t0, f"ddp {name}: {world} process(es) done")
+        return ranks
+
+    def launch_failures(label, ranks, one):
+        bad = []
+        for rec in ranks:
+            for i, (s, s1) in enumerate(zip(rec["steps"], one["steps"])):
+                got = {n: s["launches"][n] for n in TRAIN_KERNELS}
+                want = {n: s1["launches"][n] for n in TRAIN_KERNELS}
+                if got != want or not all(got.values()):
+                    bad.append(f"{label} rank {rec['rank']} step {i + 1} "
+                               f"launches {got} vs {want}")
+        return bad
+
+    one = recorded("one", 1, None)[0]
+    again = recorded("one_again", 1, None)[0]
+    spread = compare_records(again, one)
+    band = [{k: max(3 * row[k], DDP_FLOOR[k]) for k in DDP_FLOOR}
+            for row in spread]
+    print(f"ddp: single-process spread {spread}; step seconds "
+          f"{[round(s['seconds'], 4) for s in one['steps']]} and "
+          f"{[round(s['seconds'], 4) for s in again['steps']]}; card {card}",
+          flush=True)
+    failures, launches, holds = [], {}, []
+    runs = ([("gloo", 2, "gloo", "record_hold=True")] if gloo else []) + [
+        (f"nccl{w}", w, "nccl") for w in nccl]
+    for name, world, backend, *extra in runs:
+        ranks = recorded(name, world, backend, *extra)
+        failures += [f"{name} rank {r} step {i} {k}"
+                     for r, i, k in ddp_hold(name, ranks, one, band)]
+        failures += launch_failures(name, ranks, one)
+        ddp_summary(f"{name}, card {card}", ranks, one)
+        holds += ranks[0]["holds"]
+        launches.update({f"ddp_{name}_rank{r['rank']}": {
+            n: sum(s["launches"][n] for s in r["steps"]) for n in KERNEL_INFO}
+            for r in ranks})
+    for fault in faults:
+        ranks = recorded(f"fault_{fault}", 2, "gloo", f"record_fault={fault}")
+        caught = ddp_hold(f"fault {fault}", ranks, one, band)
+        print(f"ddp: fault {fault!r} planted in the gradient reduction: "
+              f"outside the band at (rank, step, key) {caught}", flush=True)
+        if not {"loss_rel", "params_all"} & {k for _, _, k in caught}:
+            failures.append(f"the band misses the fault {fault!r}")
+    if failures:
+        raise RuntimeError(f"data-parallel runs disagree with one process: "
+                           f"{failures}")
+    log(t0, "ddp runs held")
+    if not group_of_one:
+        return holds, launches
+
+    # the NCCL path on one card: one process, a group of one
+    opts = {k: DictAction._parse_value(v) for k, v in
+            (o.partition("=")[::2] for o in base + [
+                f"save_path={os.path.join(work, 'nccl')}", "max_steps=2",
+                "record_timed=1"])}
+    out = os.path.join(work, "nccl")
+    os.makedirs(out, exist_ok=True)
+    cfg = default_config_parser(BASE_CONFIG, dict(opts, record_path=out))
+    env = {k: os.environ.get(k) for k in ("RANK", "LOCAL_RANK", "WORLD_SIZE")}
+    torch.cuda.empty_cache()
+    try:
+        distributed_worker(0, record_worker, 1, 1, 0,
+                           f"tcp://127.0.0.1:{free_port()}", (cfg, "cuda"),
+                           "cuda", "nccl")
+    finally:
+        for k, v in env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    nccl1 = torch.load(os.path.join(out, "rank0.pt"), weights_only=False)
+    steps = nccl1["steps"]
+    if len(steps) != 2 or not all(np.isfinite(s["loss"]) and s["collectives"] > 0
+                                  for s in steps):
+        raise RuntimeError(f"the NCCL process's steps: {steps}")
+    print(f"ddp: nccl, a group of one: losses {[round(s['loss'], 5) for s in steps]}"
+          f" (one process: {[round(s['loss'], 5) for s in one['steps'][:2]]}); "
+          f"step seconds {[round(s['seconds'], 4) for s in steps]}; collectives "
+          f"a step {[s['collectives'] for s in steps]}, "
+          f"{steps[1]['collective_seconds']:.4f} s of the timed step 2's "
+          f"{steps[1]['seconds']:.4f} s; card {card}", flush=True)
+    log(t0, "ddp phase done")
+    launches["ddp_nccl"] = {n: sum(s["launches"][n] for s in steps)
+                            for n in KERNEL_INFO}
+    return holds, launches
+
+
 def ao_phase(device, seed, t0, rooms, val_room, train_per_step, card=""):
     """PP2S over the train rooms (oracle mode, 512^2 frames, 6 + 2 views),
     a REAL run of 3 steps at B=3 x 81920 through the port's
@@ -3823,6 +4395,8 @@ def run(device, seed, t0, room_size=(4.8, 4.0, 2.6), train_steps=5, card="",
                                            views=FULL_RUN_TEST_VIEWS)
     st_rows, st_launches, _ = stratified_phase(device, seed, t0, card, sc_dir)
     oc_rows, oc_launches, _ = octformer_phase(device, seed, t0, card, sc_dir)
+    pointcontrast_phase(device, seed, t0, card)
+    dd_rows, dd_launches = ddp_phase(device, seed, t0, card)
 
     # one entry per kernel: its heaviest captured shape of the S3DIS paths
     kernels = []
@@ -3872,7 +4446,8 @@ def run(device, seed, t0, room_size=(4.8, 4.0, 2.6), train_steps=5, card="",
             ("ptv1", [r for r in v1_rows if r["name"] != "fps"], v1_launches),
             ("swin3d", sw_rows, sw_launches),
             ("stratified", st_rows, st_launches),
-            ("octformer", oc_rows, oc_launches)):
+            ("octformer", oc_rows, oc_launches),
+            ("ddp", dd_rows, dd_launches)):
         for name in sorted({r["name"] for r in phase_rows}):
             row = max((r for r in phase_rows if r["name"] == name),
                       key=lambda r: r["bound_ms"])
@@ -3959,6 +4534,25 @@ def main():
         help="run only phase 15 (the ScanNet OctFormer config, on rooms made "
              "for it) at the largest of OCTFORMER_BATCHES whose unmixed step "
              "fits, with a traced step, and no kernel record")
+    parser.add_argument(
+        "--pointcontrast", action="store_true",
+        help="run only phase 16 (PointContrast: .sens scenes, the pair "
+             "preprocessor, 2 steps of its config), and no kernel record")
+    parser.add_argument(
+        "--ddp", action="store_true",
+        help="run only phase 17 (data parallelism on the one card: gloo "
+             "processes against one, an NCCL group of one), and no kernel "
+             "record")
+    parser.add_argument(
+        "--ddp-faults", action="store_true",
+        help="with --ddp: also run two gloo processes with each fault of "
+             "DDP_FAULTS planted in their gradient reduction, which must fall "
+             "outside phase 17's band")
+    parser.add_argument(
+        "--ddp-nccl", type=int, nargs="+", default=None, metavar="N",
+        help="run only phase 17's single process and, for each N, N processes "
+             "over NCCL on N cards held against it (needs N cards), and no "
+             "kernel record")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA card (torch.cuda.is_available() is "
@@ -4004,9 +4598,19 @@ def main():
     if args.octformer:
         octformer_phase(torch.device("cuda"), args.seed, t0, card,
                         batches=OCTFORMER_BATCHES, traced=True)
+    if args.pointcontrast:
+        pointcontrast_phase(torch.device("cuda"), args.seed, t0, card,
+                            batches=POINTCONTRAST_BATCHES)
+    if args.ddp or args.ddp_faults:
+        ddp_phase(torch.device("cuda"), args.seed, t0, card,
+                  faults=DDP_FAULTS if args.ddp_faults else ())
+    if args.ddp_nccl:
+        ddp_phase(torch.device("cuda"), args.seed, t0, card, gloo=False,
+                  nccl=args.ddp_nccl, group_of_one=False)
     if (args.scannet_batch is not None or args.outdoor_batch is not None
             or args.sparse or args.heads or args.ptv1 or args.swin3d
-            or args.stratified or args.octformer):
+            or args.stratified or args.octformer or args.pointcontrast
+            or args.ddp or args.ddp_faults or args.ddp_nccl):
         faulthandler.cancel_dump_traceback_later()
         print(f"card: {card}", flush=True)
         return 0

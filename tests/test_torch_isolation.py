@@ -238,6 +238,12 @@ msc = chip_smoke.run_train("cpu", [f"save_path={tempfile.mkdtemp()}", "max_steps
 assert np.isfinite([cac.history[0]["kl_loss"], pg.history[0]["bias_l1_loss"],
                     msc.history[0]["nce_loss"]]).all()
 assert pg.comm_info["insseg_result"]["scenes"] == 1
+from ao_tpu_torch.datasets import build_dataset
+pair_root, _ = chip_smoke.pair_setup(tempfile.mkdtemp(), scenes=((21, (1.6, 1.4, 1.2)),),
+                                     frames=3, spacing=0.06)
+pc = Config.fromfile("configs/scannet/pretrain-msc-v1m1-1-spunet-pointcontrast.py")
+pair = build_dataset(dict(pc.data.train, data_root=pair_root))
+assert len(pair) > 0 and pair[0]["view1_feat"].shape[1] == 3
 assert not any(k == "jax" or k.startswith(("jax.", "ao_tpu.", "flax", "optax"))
                for k, v in sys.modules.items() if v is not None)
 print("HEADS", len(files), " ".join(sorted(types)))
@@ -247,9 +253,10 @@ print("HEADS", len(files), " ".join(sorted(types)))
 def test_heads_configs_and_entry_points_without_ao_tpu():
     """With jax and ao_tpu unimportable: every configs/*/semseg-cac-*,
     insseg-pointgroup-* and pretrain-msc-* config (13, PointContrast's
-    among them: it builds its model; its ScanNetPairDataset is not ported
-    yet and no dataset is built here) loads through the port's Config and
-    builds its model at a narrow width; the port's bfs_cluster builds its
+    among them) loads through the port's Config and builds its model at a
+    narrow width; the PointContrast config's ScanNetPairDataset builds on a
+    tiny pair directory (one .sens scene through the port's preprocessor)
+    and yields a pair; the port's bfs_cluster builds its
     library and clusters; a step of the CAC config through the train entry
     point, of the PointGroup config through train_insseg (its evaluator
     scoring the val room) and of the synthetic MSC config through
@@ -437,7 +444,10 @@ def test_port_sources_name_no_jax_no_ao_tpu_no_cpp_extension():
                 "models/swin3d/swin3d.py", "models/swin3d/convert.py",
                 "models/stratified_transformer/stratified.py",
                 "models/stratified_transformer/convert.py",
-                "models/octformer/octformer.py", "models/octformer/convert.py"):
+                "models/octformer/octformer.py", "models/octformer/convert.py",
+                "engines/launch.py", "engines/defaults.py", "tools/test.py",
+                "datasets/preprocessing/preprocess_scannet_pair.py",
+                "models/utils.py", "ops/gva.py"):
         assert f"ao_tpu_torch/{mod}" in names
     # the one place that names an ao_tpu module: the module name that the
     # config loader serves from the port's copy (a sys.modules key, never

@@ -195,7 +195,9 @@ def test_comm_single_process(monkeypatch):
     assert comm.all_gather(3) == [3]
     comm.synchronize()
     monkeypatch.setenv("WORLD_SIZE", "2")
+    # WORLD_SIZE > 1 with no initialised process group: an error that
+    # names the launcher, never a silent single-process run
     for fn in (comm.get_world_size, comm.synchronize,
                lambda: comm.gather(1), lambda: comm.all_gather(1)):
-        with pytest.raises(NotImplementedError, match="queue 1 item 5"):
+        with pytest.raises(RuntimeError, match="engines.launch"):
             fn()
