@@ -18,7 +18,7 @@ import numpy as np
 import torch
 
 from ..utils.logger import get_root_logger
-from .builder import DATASETS
+from .builder import DATASETS, build_dataset
 from .transform import TRANSFORMS, Compose
 
 
@@ -140,6 +140,30 @@ class DefaultDataset:
         if self.test_mode:
             return self.prepare_test_data(idx)
         return self.prepare_train_data(idx)
+
+    def __len__(self):
+        return len(self.data_list) * self.loop
+
+
+@DATASETS.register_module()
+class ConcatDataset:
+    """Several datasets as one (port of ao_tpu/datasets/defaults.py:154):
+    ``data_list`` holds every (dataset, item) pair in order, each dataset
+    at its own length (its ``loop`` included), and the whole repeats
+    ``loop`` times."""
+
+    def __init__(self, datasets, loop=1):
+        self.datasets = [build_dataset(d) for d in datasets]
+        self.loop = loop
+        self.data_list = [(i, j) for i, ds in enumerate(self.datasets)
+                          for j in range(len(ds))]
+        get_root_logger().info(
+            f"Totally {len(self.data_list)} x {self.loop} samples in the "
+            f"concat set.")
+
+    def __getitem__(self, idx):
+        ds_idx, sample_idx = self.data_list[idx % len(self.data_list)]
+        return self.datasets[ds_idx][sample_idx]
 
     def __len__(self):
         return len(self.data_list) * self.loop

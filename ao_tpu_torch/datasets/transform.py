@@ -536,13 +536,18 @@ class SphereCrop:
 @TRANSFORMS.register_module()
 class GridSample:
     """Voxel-hash grid sampling (reference: transform.py:770-896) with the
-    FNV-1a hash the S3DIS configs name.
+    FNV-1a hash the configs name or the ``ravel`` hash (row-major raveling
+    over the voxels' bounding box).
 
     train mode: keep one random point per voxel; test mode: emit
     ``count.max()`` complementary fragments that jointly cover every point
     (each with an ``index`` map back to the full scene). The hashing and
     per-voxel selection follow ao_tpu's GridSample exactly, so both
-    packages voxelise a scene identically.
+    packages voxelise a scene identically. Optional outputs: the kept
+    points' voxel coordinates (``discrete_coord``), the grid's origin
+    (``min_coord``, (1, 3)), and each kept point's offset from its voxel's
+    centre in voxels (``displacement``, (n, 3), or its component along the
+    point's normal with ``project_displacement``, (n, 1)).
     """
 
     def __init__(
@@ -552,23 +557,44 @@ class GridSample:
         mode="train",
         keys=("coord", "color", "normal", "segment"),
         return_discrete_coord=False,
+        return_min_coord=False,
+        return_displacement=False,
+        project_displacement=False,
         generator: Optional[torch.Generator] = None,
     ):
-        if hash_type != "fnv" or mode not in ("train", "test"):
+        if hash_type not in ("fnv", "ravel") or mode not in ("train", "test"):
             raise ValueError(
-                f"GridSample supports hash_type='fnv' and modes train / test, "
-                f"got {hash_type!r}, {mode!r}")
+                f"GridSample supports hash_type 'fnv' / 'ravel' and modes "
+                f"train / test, got {hash_type!r}, {mode!r}")
         self.grid_size = grid_size
+        self.hash = self.fnv_hash_vec if hash_type == "fnv" else self.ravel_hash_vec
         self.mode = mode
         self.keys = keys
         self.return_discrete_coord = return_discrete_coord
+        self.return_min_coord = return_min_coord
+        self.return_displacement = return_displacement
+        self.project_displacement = project_displacement
         self.generator = generator
+
+    def _extras(self, out, data_dict, scaled, discrete, min_coord, rows):
+        """The optional outputs of the kept points ``rows``."""
+        if self.return_discrete_coord:
+            out["discrete_coord"] = discrete[rows]
+        if self.return_min_coord:
+            out["min_coord"] = min_coord.reshape(1, 3)
+        if self.return_displacement:
+            disp = scaled - discrete - 0.5
+            if self.project_displacement:
+                disp = np.sum(disp * data_dict["normal"], axis=-1,
+                              keepdims=True)
+            out["displacement"] = disp[rows]
 
     def __call__(self, data_dict):
         scaled = data_dict["coord"] / np.array(self.grid_size)
         discrete = np.floor(scaled).astype(int)
+        min_coord = discrete.min(0) * np.array(self.grid_size)
         discrete = discrete - discrete.min(0)
-        key = self.fnv_hash_vec(discrete)
+        key = self.hash(discrete)
         idx_sort = np.argsort(key)
         key_sorted = key[idx_sort]
         _, count = np.unique(key_sorted, return_counts=True)
@@ -586,8 +612,8 @@ class GridSample:
                 keep = np.zeros_like(data_dict["segment"], bool)
                 keep[data_dict["sampled_index"]] = True
                 data_dict["sampled_index"] = np.where(keep[idx_unique])[0]
-            if self.return_discrete_coord:
-                data_dict["discrete_coord"] = discrete[idx_unique]
+            self._extras(data_dict, data_dict, scaled, discrete, min_coord,
+                         idx_unique)
             for key_name in self.keys:
                 data_dict[key_name] = data_dict[key_name][idx_unique]
             return data_dict
@@ -596,12 +622,25 @@ class GridSample:
         for i in range(count.max()):
             idx_part = idx_sort[seg_starts + i % count]
             part = dict(index=idx_part)
-            if self.return_discrete_coord:
-                part["discrete_coord"] = discrete[idx_part]
+            self._extras(part, data_dict, scaled, discrete, min_coord, idx_part)
             for key_name, value in data_dict.items():
                 part[key_name] = value[idx_part] if key_name in self.keys else value
             fragments.append(part)
         return fragments
+
+    @staticmethod
+    def ravel_hash_vec(arr):
+        """Row-major raveling of integer coordinate rows over their
+        bounding box."""
+        arr = arr - arr.min(0)
+        arr = arr.astype(np.uint64, copy=False)
+        arr_max = arr.max(0).astype(np.uint64) + 1
+        keys = np.zeros(arr.shape[0], dtype=np.uint64)
+        for j in range(arr.shape[1] - 1):
+            keys += arr[:, j]
+            keys *= arr_max[j + 1]
+        keys += arr[:, -1]
+        return keys
 
     @staticmethod
     def fnv_hash_vec(arr):

@@ -2,23 +2,23 @@
 pointcept/engines/hooks/misc.py).
 
 IterationTimer, InformationWriter, CheckpointSaver and CheckpointLoader:
-the hooks of configs/_base_/default_runtime.py; PreciseEvaluator and
-RuntimeProfiler, which some configs add. Not ported yet: RuntimeProfilerV2
-and DataCacheOperator. Under a process group only process 0 writes files
-(checkpoints, the profiler's trace); the others wait for it at the end of
-CheckpointSaver's epoch.
+the hooks of configs/_base_/default_runtime.py; PreciseEvaluator,
+RuntimeProfiler and RuntimeProfilerV2, which some configs add;
+DataCacheOperator, which fills the shared-memory scene cache. Under a
+process group only process 0 writes files (checkpoints, the profilers'
+traces); the others wait for it at the end of CheckpointSaver's epoch.
 """
 
 from __future__ import annotations
 
 import os
-import shutil
+import sys
 import time
 
 import torch
 
 from ...utils import comm
-from ...utils.checkpoint import filter_state_dict
+from ...utils.checkpoint import copy_best, filter_state_dict
 from .builder import HOOKS
 from .default import HookBase
 
@@ -126,9 +126,9 @@ class CheckpointSaver(HookBase):
         trainer.save(path, epoch=trainer.epoch + 1)
         if comm.is_main_process():
             if is_best:
-                shutil.copyfile(path, os.path.join(model_dir, "model_best.pt"))
+                copy_best(path, os.path.join(model_dir, "model_best.pt"))
             if self.save_freq and (trainer.epoch + 1) % self.save_freq == 0:
-                shutil.copyfile(path, os.path.join(
+                copy_best(path, os.path.join(
                     model_dir, f"epoch_{trainer.epoch + 1}.pt"))
         comm.synchronize()
 
@@ -236,3 +236,110 @@ class RuntimeProfiler(HookBase):
         path = os.path.join(trace_dir, "trace.json")
         prof.export_chrome_trace(path)
         self.trainer.logger.info(f"Profile written to {path}")
+
+
+def _profile_activities(device):
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if device.type == "cuda":
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    return acts
+
+
+@HOOKS.register_module()
+class RuntimeProfilerV2(HookBase):
+    """torch.profiler on its schedule (``torch.profiler.schedule(wait,
+    warmup, active, repeat)``), stepped once a train step from the start of
+    training: each of the ``repeat`` cycles waits ``wait`` steps, warms up
+    ``warmup`` and records ``active``, whose trace is written under
+    ``<save_path>/profile_v2`` as ``trace_<n>.json`` (process 0 only). With
+    ``interrupt`` the run exits (``sys.exit(0)``) once the last cycle is
+    written, as the JAX package's hook does (reference torch.profiler
+    schedule hook: hooks/misc.py:412-482)."""
+
+    def __init__(self, wait=1, warmup=1, active=2, repeat=1, interrupt=False):
+        self.wait, self.warmup, self.active = wait, warmup, active
+        self.repeat = repeat
+        self.interrupt = interrupt
+        self.traces = []
+        self._prof = None
+
+    def before_train(self):
+        self._prof = torch.profiler.profile(
+            activities=_profile_activities(self.trainer.device),
+            schedule=torch.profiler.schedule(wait=self.wait, warmup=self.warmup,
+                                             active=self.active,
+                                             repeat=self.repeat),
+            on_trace_ready=self._write)
+        self._prof.__enter__()
+
+    def after_step(self):
+        if self._prof is not None:
+            self._prof.step()
+        if self.interrupt and len(self.traces) >= self.repeat:
+            self.trainer.logger.info("RuntimeProfilerV2: interrupt, exiting")
+            self._close()
+            sys.exit(0)
+
+    def after_train(self):
+        self._close()
+
+    def _close(self):
+        prof, self._prof = self._prof, None
+        if prof is not None:
+            prof.__exit__(None, None, None)
+
+    def _write(self, prof):
+        """The profiler's ``on_trace_ready``: one trace file a cycle (None
+        in ``traces`` on the processes that write none)."""
+        n, path = len(self.traces) + 1, None
+        if comm.is_main_process():
+            trace_dir = os.path.join(self.trainer.save_path, "profile_v2")
+            os.makedirs(trace_dir, exist_ok=True)
+            path = os.path.join(trace_dir, f"trace_{n}.json")
+            prof.export_chrome_trace(path)
+        self.traces.append(path)
+        self.trainer.logger.info(
+            f"RuntimeProfilerV2: trace {n}/{self.repeat} done")
+
+
+@HOOKS.register_module()
+class DataCacheOperator(HookBase):
+    """Fills the shared-memory scene cache (utils/cache.py) with every
+    scene of the train set before training, one entry a scene under the
+    name ``"ao-" + <path>``, stopping at ``mem_size_limit_gb`` of arrays
+    (reference: hooks/misc.py:299-330). As in the JAX package the datasets
+    take ``cache=`` and read their scenes from disk all the same, and a
+    train set whose ``data_list`` does not hold paths (a ConcatDataset's
+    holds (dataset, item) pairs) is left uncached. Every process runs it;
+    an entry that another process filled first is read, not written
+    again."""
+
+    def __init__(self, data_root=None, mem_size_limit_gb=None):
+        self.data_root = data_root
+        self.mem_size_limit_gb = mem_size_limit_gb
+        self.cached = []
+
+    def before_train(self):
+        from ...datasets.defaults import load_scene
+        from ...utils.cache import shared_dict
+
+        trainer = self.trainer
+        data_list = getattr(trainer.train_loader.dataset, "data_list", [])
+        if not data_list or not isinstance(data_list[0], str):
+            return
+        trainer.logger.info(f"=> Caching {len(data_list)} scenes to shm ...")
+        total = 0
+        for path in data_list:
+            try:
+                data = load_scene(path)
+            except (OSError, ValueError, RuntimeError) as e:
+                trainer.logger.warning(f"not cached: {path}: {e}")
+                continue
+            total += sum(getattr(v, "nbytes", 0) for v in data.values())
+            if (self.mem_size_limit_gb
+                    and total > self.mem_size_limit_gb * 1024**3):
+                trainer.logger.warning("shm cache size limit reached")
+                break
+            shared_dict("ao-" + path, data)
+            self.cached.append(path)
+        trainer.logger.info("=> Done.")

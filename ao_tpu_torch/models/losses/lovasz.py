@@ -7,9 +7,17 @@ classes present among the contributing points. Ignored and padded points
 contribute zero error and zero foreground, which leaves the Lovasz
 extension unchanged (they sort last with error 0).
 
-The loss sorts the errors of the whole batch, so it is not a sum over
-points and does not split across processes: in a train step under a
-process group (``comm.global_batch()``) it raises (ROADMAP.md queue 1).
+In a train step under a process group (``comm.global_batch()``) the loss
+is the global batch's, as the JAX package's step on its mesh computes it:
+every process gathers all processes' per-class errors and foreground
+(each padded with zeros to the longest process's points, which sort last
+and leave the extension unchanged), sorts the concatenation once in rank
+order with a stable sort (the order one process gets on the concatenated
+batch), takes the Lovasz gradient of the sorted foreground and keeps the
+weights of its own points. It returns the sum of its own errors times
+those weights over the global count of present classes. The weights do
+not depend on the errors, so the processes' terms sum to the global loss
+and their gradients (which the trainer sums) to its gradient.
 """
 
 from __future__ import annotations
@@ -31,6 +39,24 @@ def _lovasz_grad(gt_sorted):
                      dim=-1)
 
 
+def _global_lovasz(errors, fg):
+    """This process's term of the Lovasz loss over the global batch:
+    ``errors`` and ``fg`` (C, n) are its own points'."""
+    C, n = errors.shape
+    both = comm.all_gather_padded(torch.stack([errors.detach(), fg]))
+    world, _, _, longest = both.shape
+    e_all, fg_all = both.permute(1, 2, 0, 3).reshape(2, C, world * longest)
+    _, order = torch.sort(e_all, dim=1, descending=True, stable=True)
+    weights = torch.empty_like(e_all).scatter_(
+        1, order, _lovasz_grad(torch.gather(fg_all, 1, order)))
+    start = comm.get_rank() * longest
+    own = weights[:, start:start + n]
+    present = fg_all.sum(1) > 0
+    per_class = (errors * own).sum(1)
+    return torch.where(present, per_class, 0.0).sum() / torch.clamp_min(
+        present.sum().float(), 1.0)
+
+
 @LOSSES.register_module()
 class LovaszLoss:
     def __init__(self, mode: str = "multiclass", loss_weight: float = 1.0,
@@ -41,10 +67,6 @@ class LovaszLoss:
         self.ignore_index = ignore_index
 
     def __call__(self, pred, target, mask=None):
-        if comm.in_global_batch():
-            raise NotImplementedError(
-                "LovaszLoss sorts the errors of the whole batch and is not "
-                "ported to data parallelism: train its configs in one process")
         C = pred.shape[-1]
         pred = pred.reshape(-1, C).float()
         target = target.reshape(-1)
@@ -55,6 +77,8 @@ class LovaszLoss:
         t = torch.where(v, target, 0).long()
         fg = (torch.nn.functional.one_hot(t, C).float() * v[:, None]).T  # (C, N)
         errors = (fg - torch.where(v[None, :], probs.T, 0.0)).abs()
+        if comm.in_global_batch():
+            return self.loss_weight * _global_lovasz(errors, fg)
         errors_sorted, order = torch.sort(errors, dim=1, descending=True,
                                           stable=True)
         grad = _lovasz_grad(torch.gather(fg, 1, order))

@@ -10,6 +10,10 @@ same dispatch rules:
   their points Morton-sorted and build the window-restricted graph of
   ``knn_self_presorted`` (half-window 256 rows); the TPU package's "backend
   is tpu" test is "device is cuda" here.
+* the JAX package's kernel-path switches, read at call time with its
+  defaults: ``AO_EXACT_KNN=1`` (the exact kNN, gathered path),
+  ``AO_GVA_SLAB=0`` (the gathered path), ``AO_SLAB_W`` (the slab
+  half-window) and ``AO_GVA_FUSED=0`` (the unfused attention).
 * the fused GVA kernels run on the card for bf16 compute at N >= 64 (K3 in
   eval mode; K4, K5, K3 and, backwards, K6 in train mode); below that
   gate, and off the card, the unfused composition with the reference's pad
@@ -39,6 +43,7 @@ from typing import Optional, Sequence
 
 import contextlib
 import math
+import os
 
 import torch
 import torch.utils.checkpoint
@@ -49,7 +54,9 @@ from ...ops.grouping import grouping, grouping_with_rel_coord
 from ...ops.gva import (folded_params, gva_eval, gva_reference, gva_train,
                         pack_coords)
 from ...ops.interpolation import interpolation
-from ...ops.knn_spatial import knn_self_presorted, knn_self_spatial, morton_code
+from ...ops.knn import knn_query
+from ...ops.knn_spatial import (knn_self_presorted, knn_self_spatial,
+                                knn_window_fits, morton_code)
 from ..builder import MODELS
 from ..utils import (DropPath, Dropout, PointBatchNorm, dense,
                      update_running_stats)
@@ -57,11 +64,30 @@ from ..utils import (DropPath, Dropout, PointBatchNorm, dense,
 # Below this point count one curve window covers (nearly) the whole cloud,
 # so a single probe is exact; above it, three probes.
 _SMALL_N = 1152
-# slab half-window in curve rows (the JAX package's AO_SLAB_W default)
+# the slab half-window in curve rows when AO_SLAB_W is unset
 _SLAB_W = 256
 
 
+def _env_on(name):
+    """Whether the kernel-path switch ``name`` (the JAX package's ``AO_*``
+    variables, read at call time as it reads them at trace time) is set to
+    "1": an off-by-default mode turns on at "1" alone."""
+    return os.environ.get(name, "0") == "1"
+
+
+def _env_off(name):
+    """Whether the kernel-path switch ``name`` is set to "0": an
+    on-by-default path turns off at "0" alone, any other value keeps it."""
+    return os.environ.get(name, "1") == "0"
+
+
 def _self_knn(coord, mask, k):
+    """The stage graph off the slab path: the exact kNN under
+    ``AO_EXACT_KNN=1`` (the JAX package's diagnostic mode, which isolates
+    the windowed search's approximation), else the single-probe window
+    search up to ``_SMALL_N`` points and the three-probe one above."""
+    if _env_on("AO_EXACT_KNN"):
+        return knn_query(k, coord, mask)
     if coord.shape[1] <= _SMALL_N:
         return knn_self_spatial(coord, mask, k=k, probes=1, exact_dist=False)
     return knn_self_spatial(coord, mask, k=k, exact_dist=False)
@@ -71,14 +97,32 @@ def _slab_geometry(C, N, S, device):
     """Window geometry of the slab path for a stage, or None for the
     gathered path. (TQ, J) are the TPU kernel's slab tiling; the kNN window
     (tile_q, window, front) lies inside every covering slab:
-    window = 2W + 2TQ - tile_q, front = W - tile_q + TQ."""
+    window = 2W + 2TQ - tile_q, front = W - tile_q + TQ.
+
+    The JAX package's switches, read at call time: ``AO_GVA_SLAB=0`` and
+    ``AO_EXACT_KNN=1`` take the gathered path; ``AO_SLAB_W`` sets the
+    half-window W (rounded down to a TQ multiple, at least one block; 512
+    gives the wider graph). A window beyond what K1's shared memory holds
+    raises a ValueError naming the largest AO_SLAB_W the stage takes."""
+    if _env_off("AO_GVA_SLAB") or _env_on("AO_EXACT_KNN"):
+        return None
     if device.type != "cuda" or C > 384 or N < 2048:
         return None
     TQ = 128 if C <= 96 else (64 if C <= 192 else 32)
-    J = 2 * max(_SLAB_W // TQ, 1) + 1
+    w_env = int(os.environ.get("AO_SLAB_W", str(_SLAB_W)))
+    J = 2 * max(w_env // TQ, 1) + 1
     W = (J - 1) // 2 * TQ
     tile_q = 128 if TQ >= 64 else 64
-    return dict(TQ=TQ, J=J, W=W, tile_q=tile_q, window=2 * W + 2 * TQ - tile_q,
+    window = 2 * W + 2 * TQ - tile_q
+    if not knn_window_fits(S, tile_q, window):
+        w_max = TQ
+        while knn_window_fits(S, tile_q, 2 * (w_max + TQ) + 2 * TQ - tile_q):
+            w_max += TQ
+        raise ValueError(
+            f"AO_SLAB_W={w_env}: the stage (C={C}, N={N}, k={S}) would search "
+            f"a window of {window} rows, beyond K1's shared memory; AO_SLAB_W "
+            f"takes at most {w_max + TQ - 1} at this stage (W={w_max})")
+    return dict(TQ=TQ, J=J, W=W, tile_q=tile_q, window=window,
                 front=W - tile_q + TQ)
 
 
@@ -141,8 +185,10 @@ class GroupedVectorAttention(nn.Module):
 
     def fused_ok(self, device) -> bool:
         """The fused kernel covers the PT-v2m2 attention in bf16 compute
-        without attention dropout, on the card."""
-        return (device.type == "cuda" and self.dtype == torch.bfloat16
+        without attention dropout, on the card, unless ``AO_GVA_FUSED=0``
+        (the JAX package's switch to the unfused, reference-shaped path)."""
+        return (not _env_off("AO_GVA_FUSED") and device.type == "cuda"
+                and self.dtype == torch.bfloat16
                 and self.attn_drop_rate == 0.0 and not self.legacy)
 
     def raw_params(self):

@@ -1,4 +1,5 @@
 from .knn import knn, knn_query
+from .ball_query import ball_query, random_ball_query
 from .knn_spatial import (
     knn_cross_spatial,
     knn_self_presorted,

@@ -74,6 +74,17 @@ def knn_window_plain(keys_sorted, k2, order, queries_sorted, window_starts,
 # the neighbour counts K1 is built for: the self graphs (16; 8 for the
 # ScanNet config's patch embed) and the unpool search (3)
 KNN_WINDOW_K = (3, 8, 16)
+# the dynamic shared memory a block of K1 may take on the card (227 KiB)
+KNN_WINDOW_SMEM = 232448
+
+
+def knn_window_fits(k, tile_q, window):
+    """Whether K1's block holds a window of ``window`` keys in shared
+    memory (a float4 and an id each, csrc/knn_window.cu), with its buffer of
+    2k 16-bit candidate columns a query for k > 4, and numbers its columns
+    in 16 bits."""
+    smem = window * 20 + (0 if k <= 4 else 2 * k * tile_q * 2)
+    return window <= 65535 and smem <= KNN_WINDOW_SMEM
 
 
 def knn_window(keys_sorted, k2, order, queries_sorted, window_starts, k,
@@ -89,7 +100,8 @@ def knn_window(keys_sorted, k2, order, queries_sorted, window_starts, k,
                                 window_starts, k, tile_q, window)
     B, Nk, _ = keys_sorted.shape
     Nqp = queries_sorted.shape[1]
-    if not (k in KNN_WINDOW_K and k <= window <= Nk and Nqp % tile_q == 0):
+    if not (k in KNN_WINDOW_K and k <= window <= Nk and Nqp % tile_q == 0
+            and knn_window_fits(k, tile_q, window)):
         raise ValueError(
             f"knn_window: k={k} tile_q={tile_q} window={window} Nk={Nk} "
             f"Nqp={Nqp} out of the kernel's range"

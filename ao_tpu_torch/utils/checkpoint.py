@@ -14,6 +14,7 @@ arrays (``__msgpack_chunked_array__``).
 from __future__ import annotations
 
 import os
+import shutil
 import struct
 from typing import Any, Dict
 
@@ -30,6 +31,11 @@ def save_checkpoint(path: str, state: Dict[str, Any]):
 
 def load_checkpoint(path: str, map_location="cpu") -> Dict[str, Any]:
     return torch.load(path, map_location=map_location, weights_only=True)
+
+
+def copy_best(path: str, best_path: str):
+    """Copy the checkpoint at ``path`` to ``best_path``."""
+    shutil.copyfile(path, best_path)
 
 
 def filter_state_dict(state_dict: Dict, keywords: Dict[str, str]) -> Dict:

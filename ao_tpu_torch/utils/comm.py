@@ -149,17 +149,22 @@ def _sync(t):
         torch.cuda.synchronize(t.device)
 
 
-def _all_reduce_(t: torch.Tensor) -> torch.Tensor:
-    """Sum ``t`` across processes in place, counted (and timed)."""
+def _counted(op, t):
+    """Run the collective ``op`` on ``t``'s device, counted (and timed)."""
     COUNTS["collectives"] += 1
     if not _TIMED[0]:
-        dist.all_reduce(t)
-        return t
+        op()
+        return
     _sync(t)
     start = time.perf_counter()
-    dist.all_reduce(t)
+    op()
     _sync(t)
     COUNTS["seconds"] += time.perf_counter() - start
+
+
+def _all_reduce_(t: torch.Tensor) -> torch.Tensor:
+    """Sum ``t`` across processes in place, counted (and timed)."""
+    _counted(lambda: dist.all_reduce(t), t)
     return t
 
 
@@ -188,6 +193,25 @@ def all_reduce_grad(t: torch.Tensor) -> torch.Tensor:
     if not is_distributed():
         return t
     return _AllReduceGrad.apply(t)
+
+
+def all_gather_padded(t: torch.Tensor) -> torch.Tensor:
+    """Every process's ``t`` (its last dimension may differ between
+    processes) padded with zeros to the largest process's length, stacked
+    in rank order: (world, *t.shape[:-1], longest). Two collectives, the
+    lengths then the tensors; no gradient flows through it. Without a
+    group: ``t[None]``."""
+    if not is_distributed():
+        return t.detach()[None]
+    world = get_world_size()
+    n = torch.tensor([t.shape[-1]], dtype=torch.int64, device=t.device)
+    lengths = [torch.zeros_like(n) for _ in range(world)]
+    _counted(lambda: dist.all_gather(lengths, n), n)
+    longest = max(int(x) for x in lengths)
+    padded = torch.nn.functional.pad(t.detach(), (0, longest - t.shape[-1]))
+    out = [torch.empty_like(padded) for _ in range(world)]
+    _counted(lambda: dist.all_gather(out, padded.contiguous()), padded)
+    return torch.stack(out)
 
 
 def broadcast_(tensors, src: int = 0):

@@ -37,3 +37,8 @@ def intersection_and_union_torch(output, target, K, ignore_index=-1):
     area_out = torch.bincount(output, minlength=K)[:K]
     area_tgt = torch.bincount(target, minlength=K)[:K]
     return inter, area_out + area_tgt - inter, area_tgt
+
+
+def make_divisible(x: int, divisor: int) -> int:
+    """The least multiple of ``divisor`` that is at least ``x``."""
+    return int(np.ceil(x / divisor) * divisor)

@@ -162,7 +162,7 @@ ST-v1m2) and OctFormer-v1m1 at those of their ScanNet configs.
    must make proposals and score AP50 1; the host seconds of clustering
    and of the AP table printed); the S3DIS config 3 steps at B=12. MSC:
    configs/scannet/pretrain-msc-v1m1-0-spunet-base.py through
-   ao_tpu_torch.tools.train_pretrain: 2 steps at B=6 in the full run (3
+   ao_tpu_torch.tools.train_pretrain: 2 steps at B=4 in the full run (3
    under ``--heads`` at the first of B = 8, 7, 6, 4, 2 that fits: the
    config's 32, 16 and 12 do not on an 80 GB card; the peak reached
    printed), the NCE, colour and normal losses finite and matched
@@ -183,7 +183,7 @@ ST-v1m2) and OctFormer-v1m1 at those of their ScanNet configs.
    MultiStepLR's lr, launches per step, step seconds, data wait, peak
    memory), one more timed for the share of its exact kNN (chunked above
    2^28 scores), and whole-scene testing of the slice phase's room with
-   the config's first 3 views (all 10 under ``--ptv1``).
+   the config's first view (all 10 under ``--ptv1``).
    configs/modelnet40/cls-ptv1-0-base.py as written
    (Cls26, B=32 x 1024, SGD nesterov) on synthetic shapes in ModelNet40's
    layout (40 classes, 10000 points with normals a file, one train and one
@@ -203,11 +203,12 @@ ST-v1m2) and OctFormer-v1m1 at those of their ScanNet configs.
    batch (losses finite, parameters moved, both groups' lr OneCycle's,
    each stage's occupied window rows against num_windows and the points
    dropped beyond num_windows and beyond the capacity, step seconds, data
-   wait, peak memory), one more traced with torch.profiler (device time by
-   kernel, the downsampling's exact kNN's share); one step of
+   wait, peak memory), one more timed for the downsampling's exact kNN's
+   share (under ``--swin3d`` traced with torch.profiler: device time by
+   kernel); one step of
    semseg-swin3d-v1m1-1-large.py at the first of B
    = 4, 2, 1 that fits unmixed; whole-scene testing of the ScanNet room with the
-   config's first 3 views (all 10 under ``--swin3d``; the first fragments'
+   config's first view (all 10 under ``--swin3d``; the first fragments'
    K1 / K2 calls held). ``--swin3d`` runs this phase alone, on data made
    for it.
 14. Stratified phase: configs/scannet/semseg-st-v1m1-0-origin.py as
@@ -254,28 +255,68 @@ ST-v1m2) and OctFormer-v1m1 at those of their ScanNet configs.
    every step the loss, the parameters (all tensors together) and the
    running statistics within max(3 x the spread, a floor) of the single
    process, K1-K6 launched per step by each process as by the single one;
-   then an NCCL group of one for 2 steps. The collectives a step and their
+   then the same of configs/scannet/semseg-pt-v2m2-3-lovasz.py (its
+   Lovasz term over the global batch; in the config's f32 with PyTorch's
+   deterministic algorithms, its first grid pool at 0.4 of the points so
+   that the synthetic rooms overflow none) on two ScanNet rooms, 2 steps:
+   one process at B=2 twice, two gloo processes at B=1 each, held in the
+   same kind of band (K1 and K2 launched alike: f32's attention is the
+   unfused one); a spread that would widen step 1's band past 0.5 of
+   a step in the parameters fails either case; then an NCCL group of one
+   for 2 steps. The collectives a step and their
    seconds in a timed step printed. ``--ddp`` runs it alone;
-   ``--ddp-faults`` adds two-process runs with a fault planted in the
-   gradient reduction (doubled, or left unreduced), each of which must
-   fall outside the band; ``--ddp-nccl 2 4`` runs the single process and
-   2 and 4 processes over NCCL, one card each (on a machine with 4
-   cards), held in the same band.
+   ``--ddp-faults`` adds, to both cases, two-process runs with a fault
+   planted in the gradient reduction (doubled, or left unreduced), each of
+   which must fall outside the band; ``--ddp-nccl 2 4`` runs the single
+   process and 2 and 4 processes over NCCL, one card each (on a machine
+   with 4 cards), held in the same band, and the Lovasz case at a global
+   B=4; ``--lovasz-spread`` prints the Lovasz case's single-process
+   spread under the settings of LOVASZ_SPREADS (bf16 or f32, the Lovasz
+   term or CE alone, the config's capacities or no overflow, PyTorch's
+   deterministic algorithms or not) and two gloo processes against one
+   under each.
+18. Leftovers phase: phase 17's four rooms written as raw S3DIS rooms of
+   two areas (Area_<a>/<room>/Annotations/<class>_<k>.txt), the port's
+   preprocessor (ao_tpu_torch.datasets.preprocessing.preprocess_s3dis,
+   spawned workers) over them; the main path's config (B=3 x 81920, bf16)
+   trained 3 steps through ao_tpu_torch.tools.train on a ConcatDataset of
+   the two preprocessed areas with RuntimeProfilerV2 in its hooks (its
+   trace file must hold the traced step's CUDA kernels); DataCacheOperator
+   over a plain S3DIS dataset of the rooms under an AO_SHM_CACHE in the
+   phase's directory (every cached array equal to the scene, clear_cache
+   at the end); then train steps under each of ao_tpu's kernel-path
+   switches: AO_GVA_SLAB=0 (3 steps: K1's 3 probes merged by K2, K3-K6
+   on gathered rows at every stage), AO_SLAB_W=512 (2: the wider slab
+   windows), AO_EXACT_KNN=1 (2: the exact kNN's graphs, gathered K3-K6)
+   and AO_GVA_FUSED=0 (2, the unfused attention with K1 / K2 only, at the
+   first of B = 3, 2, 1 that fits), every kernel call captured and held
+   against its plain version; each switch's step seconds, peak memory and
+   the batch that fit printed. ``--leftovers`` runs it alone.
+
+The full run keeps to about 810 s of its 1200-second limit (a slower host
+adds a seventh): phases 10-15 take FULL_RUN_STEPS (2) counted steps, Seg50
+a fixed B=PTV1_FULL_BATCH (6), MSC a fixed B=4 for one step, the PT-v1
+and Swin3D scene tests FULL_RUN_TEST_VIEWS (1) view, ST's and
+OctFormer's 2, and Swin3D no traced step; each phase's flag runs it at
+the depth above.
 
 Each main path (the slice phase, the train phase, the REAL run, the
-ScanNet test and train runs, every train and test run of phases 8-15)
+ScanNet test and train runs, every train and test run of phases 8-15 and
+18)
 runs with every kernel's launch count set to 0 just before it and read
 just after, and fails if one of its kernels never launched. The last
 three lines are the card, the kernels' JSON record (one entry per kernel,
 then one per new instance of the ScanNet config, then one per kernel of
-the outdoor, PT-v2m1, sparse, CAC, PT-v1, Swin3D, Stratified, OctFormer
-and data-parallel paths at its heaviest shape there, then FPS) and {"ok": true,
+the outdoor, PT-v2m1, sparse, CAC, PT-v1, Swin3D, Stratified, OctFormer,
+data-parallel and switch paths (knn_window[gathered], gva_bwd[slab512],
+...) at its heaviest shape there, then FPS) and {"ok": true,
 "device": {...}}.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import faulthandler
 import json
 import math
@@ -452,6 +493,29 @@ def make_room(seed, size=(4.8, 4.0, 2.6), spacing=0.034):
     return dict(coord=coord, color=color.astype(np.float32),
                 semantic_gt=label.reshape(-1, 1),
                 instance_gt=instance.reshape(-1, 1))
+
+
+def write_raw_s3dis(root, rooms):
+    """Write ``rooms`` ({(area, room name): a scene of :func:`make_room`})
+    as the raw S3DIS release lays them out:
+    ``<root>/Area_<area>/<room>/Annotations/<class>_<k>.txt``, one file an
+    instance, each line x y z r g b (millimetres, integer colours)."""
+    from ao_tpu_torch.datasets.preprocessing.preprocess_s3dis import CLASS_NAMES
+
+    for (area, name), room in rooms.items():
+        ann = os.path.join(root, f"Area_{area}", name, "Annotations")
+        os.makedirs(ann, exist_ok=True)
+        sem = room["semantic_gt"].reshape(-1)
+        inst = room["instance_gt"].reshape(-1)
+        counts = {}
+        for i in np.unique(inst):
+            rows = inst == i
+            cls = CLASS_NAMES[int(sem[rows][0])]
+            k = counts[cls] = counts.get(cls, 0) + 1
+            np.savetxt(os.path.join(ann, f"{cls}_{k}.txt"),
+                       np.concatenate([room["coord"][rows],
+                                       room["color"][rows]], 1),
+                       fmt="%.3f %.3f %.3f %d %d %d")
 
 
 # ---------------------------------------------------------------------------
@@ -777,7 +841,7 @@ def check_fps(args, out_k, out_p):
         f"indices differing {int(err)}; chain {chain_ms:.4f} ms")
 
 
-def describe(name, args):
+def describe(name, args, gathered=False):
     if name == "fps":
         coord, mask, m = args[:3]
         return (f"B={coord.shape[0]} N={coord.shape[1]} m={m} "
@@ -791,7 +855,9 @@ def describe(name, args):
         return (f"B={inv[0].shape[0]} N={inv[0].shape[1]} probes={len(s)} "
                 f"k={k} width={len(s) * k}")
     B, Nq, S, Nsrc, C = _gva_dims(args)
-    mode = "slab" if Nsrc >= 2048 else "gathered"
+    # the default dispatch's gate (N >= 2048); a run with the slab path off
+    # passes ``gathered``
+    mode = "slab" if Nsrc >= 2048 and not gathered else "gathered"
     G = (args[4]["W2"].shape[0] if name in ("gva_eval", "gva_bwd")
          else args[8].shape[1] if name == "gva_stats" else None)
     g = f" G={G}" if G else ""
@@ -840,12 +906,13 @@ def _device_ms(fn, name, **kw):
 TIMING_REPS = {"fps": (3, 1)}
 
 
-def hold_captured(cap, phase):
+def hold_captured(cap, phase, gathered=False):
     """Hold each kernel against its plain version on every captured
     (kernel, shape) and time both; raise if one disagrees. ``ms`` is the
     wrapper's time per call (CUDA events around back-to-back calls, host
     work included), ``device_ms`` the kernel's own device time per launch
-    (torch.profiler; None where no trace recorded it)."""
+    (torch.profiler; None where no trace recorded it). ``gathered``: the
+    run took the gathered path at every N (:func:`describe`)."""
     plain = plain_versions()
     rows, failures = [], []
     for key, (name, fn, args) in cap.calls.items():
@@ -864,7 +931,8 @@ def hold_captured(cap, phase):
                                 warmup=0)
             plain_ms = first_ms if plain_reps == 1 else cuda_ms(
                 lambda: plain[name](*args), reps=plain_reps, warmup=1)
-        row = dict(name=name, phase=phase, shape=describe(name, args), ok=ok,
+        row = dict(name=name, phase=phase, shape=describe(name, args, gathered),
+                   ok=ok,
                    max_abs_err=err, ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
                    bound_ms=bound_ms, bound_by=by, library_ms=lib_ms, note=note)
         rows.append(row)
@@ -2146,7 +2214,7 @@ def capture_step(config, options, device, names, t0, label):
     return rows
 
 
-def held(names, label, fn, limit=None):
+def held(names, label, fn, limit=None, gathered=False):
     """Run ``fn`` with the wrappers of ``names`` captured (:class:`Capture`,
     launches counted as without it; ``limit`` caps the shapes kept a
     kernel), then hold every captured (kernel, shape) against its plain
@@ -2156,7 +2224,7 @@ def held(names, label, fn, limit=None):
         out = fn()
     finally:
         cap.restore()
-    rows = hold_captured(cap, label)
+    rows = hold_captured(cap, label, gathered)
     missing = set(names) - {r["name"] for r in rows}
     if missing:
         raise RuntimeError(f"kernels never called on the {label}: {sorted(missing)}")
@@ -2624,8 +2692,8 @@ CAC_PTV2_IN = ("model.backbone.in_channels=6",)
 # the ladder starts at 8 to keep the script inside its time limit
 MSC_BATCHES = (8, 7, 6, 4, 2)
 # the full run's MSC batch and steps (the ladder runs under --heads)
-MSC_FULL_BATCH = 6
-MSC_FULL_STEPS = 2
+MSC_FULL_BATCH = 4
+MSC_FULL_STEPS = 1
 
 
 def check_terms(record, terms, label):
@@ -2855,6 +2923,10 @@ CLS_SPUNET_CONFIG = os.path.join(ROOT, "configs", "modelnet40",
                                  "cls-spunet-v1m1-0-base.py")
 # Seg50's batches, tried in turn from the config's own 12 until one fits
 PTV1_BATCHES = (12, 8, 6, 4, 3)
+# the full run's Seg50 batch (B=12 fits: 7.6 s a step; the ladder runs under
+# --ptv1) and the counted steps of the full run's phases 10-15
+PTV1_FULL_BATCH = 6
+FULL_RUN_STEPS = 2
 # the kernels of the PT-v1 segmentation paths (the unpooling's K1 and K2
 # above 2M query x key pairs, FPS at every TransitionDown)
 PTV1_KERNELS = ("knn_window", "merge_topk", "fps")
@@ -3049,13 +3121,13 @@ def fps_cases(device, seed=0):
 
 
 def ptv1_phase(device, seed, t0, card="", rooms=None, test_room=None, steps=3,
-               test_views=None):
+               test_views=None, batches=PTV1_BATCHES):
     """Phase 12: PT-v1 and the classification and part-segmentation tasks
     at full width (f32). FPS held against its plain version on
     :func:`fps_cases`. configs/s3dis/semseg-pt-v1-0-base.py (Seg50,
     AdamW, MultiStepLR) on the train phase's rooms (made here where None)
     written with their loop: one train step at the first of
-    :data:`PTV1_BATCHES` that fits (each that does not prints the peak
+    ``batches`` that fits (each that does not prints the peak
     reached) with its K1, K2 and FPS calls captured and held, then
     ``steps`` counted steps at that batch, one more timed for the exact
     kNN's share (:func:`profile_train_step`), and whole-scene testing of ``test_room``
@@ -3100,7 +3172,7 @@ def ptv1_phase(device, seed, t0, card="", rooms=None, test_room=None, steps=3,
         return sparse_options(s3_root, n_s3, batch, n_steps,
                               os.path.join(work, name), seed)
 
-    batch, rows_b = fit_batch(PTV1_BATCHES, "ptv1 seg50 train", card, lambda b: (
+    batch, rows_b = fit_batch(batches, "ptv1 seg50 train", card, lambda b: (
         capture_step(PTV1_CONFIG, opts(b, 1, f"seg50_k{b}"), device,
                      PTV1_KERNELS, t0, f"PT-v1 Seg50 train step B={b}")))
     rows += rows_b
@@ -3223,7 +3295,7 @@ SWIN3D_LARGE_BATCHES = (4, 2, 1)
 # the full run's: the small config's batch the ladder found (B=12 and 8 ran
 # out of memory unmixed on an 80 GB card) and the scene test's views
 SWIN3D_BATCH = 6
-FULL_RUN_TEST_VIEWS = 3
+FULL_RUN_TEST_VIEWS = 1
 # the kernels of the Swin3D, Stratified and OctFormer paths: the decoder's
 # 3-NN interpolation above 2M query x key pairs (2-probe curve search: K1,
 # then K2's fused merge)
@@ -3309,7 +3381,7 @@ def scannet_scene_test(config, device, sc_root, work, seed, label, card,
 
 
 def swin3d_phase(device, seed, t0, card="", scannet_dir=None, steps=3,
-                 batches=(SWIN3D_BATCH,), views=None):
+                 batches=(SWIN3D_BATCH,), views=None, traced=True):
     """Phase 13: configs/scannet/semseg-swin3d-v1m1-0-small.py as written
     (f32, AdamW with the tables' param_dicts group, OneCycle, Mix3D) on the
     ScanNet phase's rooms (written under ``scannet_dir``; made here where
@@ -3320,7 +3392,7 @@ def swin3d_phase(device, seed, t0, card="", scannet_dir=None, steps=3,
     counted steps at that batch as written (losses finite, parameters moved, OneCycle's lr in both
     groups, the windows each stage occupies and drops, step seconds, data
     wait, peak memory), one more timed for the share of the downsampling's
-    exact kNN and one traced for device time by kernel
+    exact kNN and, with ``traced``, one traced for device time by kernel
     (:func:`profile_train_step`); the
     large config's one step at the first of
     :data:`SWIN3D_LARGE_BATCHES` that fits unmixed; whole-scene testing of the
@@ -3378,7 +3450,8 @@ def swin3d_phase(device, seed, t0, card="", scannet_dir=None, steps=3,
               f"num_windows {[b[2] for b in blocks]}, beyond the capacity "
               f"{[b[3] for b in blocks]}", flush=True)
     records["trace"] = profile_train_step(
-        trainer, next(iter(trainer.train_loader)), swin3d, warm=False)
+        trainer, next(iter(trainer.train_loader)), swin3d, warm=False,
+        traced=traced)
     print(json.dumps({"scannet_swin3d_step_profile": dict(
         records["trace"], card=card)}), flush=True)
     del trainer
@@ -3836,7 +3909,9 @@ def record_worker(cfg, device):
     ``record_hold`` (process 0 holds K1-K6 of its first step against
     their plain versions at its own shapes, as phase 4 does),
     ``record_fault`` (a fault of :func:`plant_fault` in the step's gradient
-    reduction, to show that the comparison catches it)."""
+    reduction, to show that the comparison catches it),
+    ``record_deterministic`` (PyTorch's deterministic algorithms where it
+    has them, a warning where not)."""
     from contextlib import nullcontext
 
     from ao_tpu_torch.engines import Trainer, local_device
@@ -3882,6 +3957,8 @@ def record_worker(cfg, device):
         rec = dict(
             loss=loss, seconds=time.perf_counter() - t, timed=timed,
             grad_norm=float(out[0]["grad_norm"]),
+            overflow=float(out[0].get("pool_overflow", 0.0)),
+            shape=tuple(trainer._masks(batch)[0].shape),
             collectives=comm.COUNTS["collectives"],
             collective_seconds=comm.COUNTS["seconds"],
             launches={n: w.launches - before[n] for n, w in wrappers.items()},
@@ -3900,7 +3977,12 @@ def record_worker(cfg, device):
         plant_fault(trainer, cfg.record_fault)
     if cuda:
         torch.cuda.reset_peak_memory_stats(device)
-    trainer.train()
+    if cfg.get("record_deterministic"):
+        torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        trainer.train()
+    finally:
+        torch.use_deterministic_algorithms(False)
     torch.save(dict(
         rank=comm.get_rank(), world=comm.get_world_size(), steps=steps,
         init=init, holds=holds, val=trainer.comm_info.get("val_result"),
@@ -4051,6 +4133,11 @@ def pointcontrast_phase(device, seed, t0, card="",
 DDP_ROOMS = TRAIN_ROOMS + ((4, (6.2, 5.2, 3.0)),)
 DDP_STEPS = 3
 DDP_FLOOR = dict(loss_rel=2e-4, params_all=0.25, stats=2e-2)
+# the widest parameter band a case may take at its first step, whose
+# update is the (reduced) gradient itself: there a doubled gradient shows
+# as 1.0 of a step and an unreduced one as 0.79-1.0, so a wider band could
+# not tell a fault from the runs' own spread
+DDP_CEILING = 0.5
 # the faults --ddp-faults plants in a two-process run's gradient reduction
 DDP_FAULTS = ("double", "unreduced")
 
@@ -4079,10 +4166,10 @@ def ddp_summary(label, ranks, one):
     process's, its collectives a step and their seconds in its timed step
     (each synchronised), its peak memory and losses."""
     timed = [s for s in ranks[0]["steps"] if s["timed"]][0]
-    print(f"ddp {label}: {len(ranks)} processes, B={4 // len(ranks)} x 81920 "
-          f"each: step seconds "
+    print(f"ddp {label}: {len(ranks)} processes, (B, N) "
+          f"{ranks[0]['steps'][0]['shape']} each: step seconds "
           f"{[[round(s['seconds'], 4) for s in r['steps']] for r in ranks]} "
-          f"against one process at B=4 "
+          f"against one process at {one['steps'][0]['shape']} "
           f"{[round(s['seconds'], 4) for s in one['steps']]}; collectives a "
           f"step {[s['collectives'] for s in ranks[0]['steps']]}, "
           f"{timed['collective_seconds']:.4f} s of the timed step's "
@@ -4090,31 +4177,204 @@ def ddp_summary(label, ranks, one):
           f"{timed['collective_seconds'] / timed['seconds']:.3f}); peak memory "
           f"{[round(r['peak_gib'], 2) for r in ranks]} GiB a process, "
           f"{one['peak_gib']:.2f} GiB one; losses "
-          f"{[round(s['loss'], 6) for s in ranks[0]['steps']]}", flush=True)
+          f"{[round(s['loss'], 6) for s in ranks[0]['steps']]} against "
+          f"{[round(s['loss'], 6) for s in one['steps']]}", flush=True)
+
+
+def launch_failures(label, ranks, one, kernels=TRAIN_KERNELS):
+    """The steps of a data-parallel run whose launches of ``kernels``
+    differ from the single process's, or lack a kernel."""
+    bad = []
+    for rec in ranks:
+        for i, (s, s1) in enumerate(zip(rec["steps"], one["steps"])):
+            got = {n: s["launches"][n] for n in kernels}
+            want = {n: s1["launches"][n] for n in kernels}
+            if got != want or not all(got.values()):
+                bad.append(f"{label} rank {rec['rank']} step {i + 1} "
+                           f"launches {got} vs {want}")
+    return bad
+
+
+def single_spread(label, recorded, card):
+    """One process twice through ``recorded(name, world, backend)``: its
+    record and the per-step spread (:func:`compare_records`) between the
+    two, printed with the step-1 gradient norms and the grid pools'
+    overflow."""
+    one = recorded("one", 1, None)[0]
+    again = recorded("one_again", 1, None)[0]
+    spread = compare_records(again, one)
+    print(f"ddp {label}: (B, N) {one['steps'][0]['shape']}; single-process "
+          f"spread {spread}; gradient norms "
+          f"{[round(s['grad_norm'], 4) for s in one['steps']]} and "
+          f"{[round(s['grad_norm'], 4) for s in again['steps']]}; pool overflow "
+          f"{[s['overflow'] for s in one['steps']]}; step seconds "
+          f"{[round(s['seconds'], 4) for s in one['steps']]} and "
+          f"{[round(s['seconds'], 4) for s in again['steps']]}; card {card}",
+          flush=True)
+    return one, spread
+
+
+def ddp_case(label, config, base, work, runs, faults, t0, card,
+             kernels=TRAIN_KERNELS, repeat=True):
+    """One case of phase 17: ``config`` with the KEY=VALUE ``base``
+    options. One process twice (:func:`single_spread`) sets the band
+    max(3 x spread, :data:`DDP_FLOOR`) per step, whose parameter gap at
+    step 1 may not pass :data:`DDP_CEILING`; without ``repeat`` (a case
+    whose single process repeats itself bit for bit) one process once and
+    the band :data:`DDP_FLOOR`. Then each of ``runs``
+    ((name, world, backend, *options)) held in that band at every step
+    (loss, parameters, running statistics) with ``kernels`` launched per
+    step by every process as by the single one; and for each fault of
+    ``faults`` (:data:`DDP_FAULTS`), two gloo processes with the fault
+    planted in their gradient reduction, which must fall outside the band
+    in the loss or the parameters. Returns (failures, process 0's held
+    kernel rows, launches by path, the single process's record)."""
+
+    def recorded(name, world, backend, *extra):
+        torch.cuda.empty_cache()
+        out = os.path.join(work, f"{label}_{name}")
+        ranks = run_recorded(base + [f"save_path={out}", *extra], world, out,
+                             device="cuda", backend=backend, config=config)
+        log(t0, f"ddp {label} {name}: {world} process(es) done")
+        return ranks
+
+    if repeat:
+        one, spread = single_spread(label, recorded, card)
+        band = [{k: max(3 * row[k], DDP_FLOOR[k]) for k in DDP_FLOOR}
+                for row in spread]
+    else:
+        one = recorded("one", 1, None)[0]
+        band = [dict(DDP_FLOOR) for _ in one["steps"]]
+        print(f"ddp {label}: (B, N) {one['steps'][0]['shape']}; band "
+              f"{DDP_FLOOR} (no repeat); gradient norms "
+              f"{[round(s['grad_norm'], 4) for s in one['steps']]}; pool "
+              f"overflow {[s['overflow'] for s in one['steps']]}; step seconds "
+              f"{[round(s['seconds'], 4) for s in one['steps']]}; card {card}",
+              flush=True)
+    failures = [f"{label}: the spread sets a parameter band of "
+                f"{band[0]['params_all']:.3g} at step 1, above {DDP_CEILING}"
+                ] if band[0]["params_all"] > DDP_CEILING else []
+    holds, launches = [], {}
+    for name, world, backend, *extra in runs:
+        ranks = recorded(name, world, backend, *extra)
+        failures += [f"{label} {name} rank {r} step {i} {k}" for r, i, k in
+                     ddp_hold(f"{label} {name}", ranks, one, band)]
+        failures += launch_failures(f"{label} {name}", ranks, one, kernels)
+        ddp_summary(f"{label} {name}, card {card}", ranks, one)
+        holds += ranks[0]["holds"]
+        launches.update({f"ddp_{label}_{name}_rank{r['rank']}": {
+            n: sum(s["launches"][n] for s in r["steps"]) for n in KERNEL_INFO}
+            for r in ranks})
+    for fault in faults:
+        ranks = recorded(f"fault_{fault}", 2, "gloo", f"record_fault={fault}")
+        caught = ddp_hold(f"{label} fault {fault}", ranks, one, band)
+        print(f"ddp {label}: fault {fault!r} planted in the gradient "
+              f"reduction: outside the band at (rank, step, key) {caught}",
+              flush=True)
+        if not {"loss_rel", "params_all"} & {k for _, _, k in caught}:
+            failures.append(f"{label}: the band misses the fault {fault!r}")
+    return failures, holds, launches, one
+
+
+# phase 17's Lovasz case: configs/scannet/semseg-pt-v2m2-3-lovasz.py (its
+# Lovasz term over the global batch), 2 steps, at a global batch of 2
+# ScanNet rooms (of 4 where 4 processes run), in the config's f32 with
+# PyTorch's deterministic algorithms (LOVASZ_HELD) and its first grid
+# pool at 0.4 of the points. In bf16 this path turns any difference in
+# the order of a sum (atomics, or the batch split over processes) into
+# 0.45-0.55 of a step at step 1, as wide as a planted fault; in f32 with
+# deterministic algorithms one process repeats itself bit for bit and two
+# processes stay within 0.004 (--lovasz-spread), so phase 17 runs its
+# single process once and holds it in DDP_FLOOR. In f32 the attention is
+# unfused (K3-K6 are bf16 kernels), so the case launches K1 and K2
+# (UNPOOL_KERNELS); the S3DIS case holds K3-K6. A pool's capacity follows
+# each process's padded N, and the synthetic rooms (sparser than
+# ScanNet's 0.02 m grid) overflow the config's 0.35 by 2812 clusters,
+# which would merge otherwise in one process than in two
+LOVASZ_CONFIG = os.path.join(ROOT, "configs", "scannet",
+                             "semseg-pt-v2m2-3-lovasz.py")
+LOVASZ_STEPS = 2
+LOVASZ_CAPACITY = "model.backbone.stage_cap_ratios=(0.4, 0.35, 0.35, 0.35)"
+LOVASZ_CE_ONLY = ("model.criteria=[{'type': 'CrossEntropyLoss', "
+                  "'loss_weight': 1.0, 'ignore_index': -1}]")
+LOVASZ_F32 = "model.backbone.compute_dtype=float32"
+LOVASZ_DETERMINISTIC = "record_deterministic=True"
+LOVASZ_HELD = (LOVASZ_CAPACITY, LOVASZ_F32, LOVASZ_DETERMINISTIC)
+
+
+def lovasz_setup(work, batch, seed, t0):
+    """The Lovasz case's ``batch`` ScanNet rooms written under ``work`` and
+    its options (bf16, SGD, no stochastic depth, no Mix3D, one loop), at
+    the config's own capacities."""
+    rooms = [make_scannet_room(s_, size) for s_, size in SCANNET_ROOMS[:batch]]
+    _, base = scannet_setup(rooms, workdir=os.path.join(work, "lovasz"),
+                            batch_size=batch, max_steps=LOVASZ_STEPS, workers=0,
+                            seed=seed)
+    log(t0, f"ddp lovasz rooms: {[len(r['coord']) for r in rooms]} points")
+    return base + list(SCANNET_BF16) + [
+        "model.backbone.drop_path_rate=0.0", "mix_prob=0.0", "data.train.loop=1",
+        f"epoch={LOVASZ_STEPS}", f"eval_epoch={LOVASZ_STEPS}", "record_timed=1",
+        "optimizer={'type': 'SGD', 'lr': 0.006, 'momentum': 0.9, "
+        "'weight_decay': 0.0001}"]
+
+
+# the settings --lovasz-spread compares (options over lovasz_setup's):
+# the config as written (CE + Lovasz, bf16, first pool at 0.35), CE
+# alone, the first pool at 0.4 (no overflow), both, f32, PyTorch's
+# deterministic algorithms, f32 with them
+LOVASZ_SPREADS = {
+    "config": (), "ce_only": (LOVASZ_CE_ONLY,), "capacity": (LOVASZ_CAPACITY,),
+    "ce_only_capacity": (LOVASZ_CE_ONLY, LOVASZ_CAPACITY),
+    "f32_capacity": (LOVASZ_CAPACITY, LOVASZ_F32),
+    "deterministic_capacity": (LOVASZ_CAPACITY, LOVASZ_DETERMINISTIC),
+    "f32_deterministic_capacity": LOVASZ_HELD}
+
+
+def lovasz_spread(seed, t0, card, names=tuple(LOVASZ_SPREADS)):
+    """The Lovasz case's single-process spread (:func:`single_spread`) at
+    B=2 under each setting of ``names`` (:data:`LOVASZ_SPREADS`), to tell
+    the loss's, the overflowing pool's, bf16's and PyTorch's atomics'
+    shares of it, and two gloo processes at B=1 each against the single
+    process under the same setting, printed beside the band max(3 x
+    spread, :data:`DDP_FLOOR`)."""
+    work = tempfile.mkdtemp(prefix="ao_chip_spread_")
+    base = lovasz_setup(work, 2, seed, t0)
+    for name in names:
+        def recorded(run, world, backend):
+            torch.cuda.empty_cache()
+            out = os.path.join(work, f"{name}_{run}")
+            ranks = run_recorded(base + list(LOVASZ_SPREADS[name]) + [
+                f"save_path={out}"], world, out, device="cuda",
+                backend=backend, config=LOVASZ_CONFIG)
+            log(t0, f"lovasz spread {name} {run} done")
+            return ranks
+
+        one, spread = single_spread(f"lovasz spread, {name}", recorded, card)
+        band = [{k: max(3 * row[k], DDP_FLOOR[k]) for k in DDP_FLOOR}
+                for row in spread]
+        ddp_hold(f"lovasz spread, {name}, gloo", recorded("gloo", 2, "gloo"),
+                 one, band)
 
 
 def ddp_phase(device, seed, t0, card="", gloo=True, faults=(), nccl=(),
-              group_of_one=True):
+              group_of_one=True, lovasz=True):
     """Phase 17: data parallelism. The main path's config (full width,
     bf16) on :data:`DDP_ROOMS` at a global B=4 x 81920, one step an epoch,
     for :data:`DDP_STEPS` steps, with SGD in place of AdamW (whose first
     updates are the gradients' signs, so that a gradient zero up to
     rounding flips sign between any two runs), no stochastic depth, and
-    each scene's augmentation seeded by its index (:class:`SeededItems`).
-    One process at B=4, twice: its run-to-run spread (K6 sums with
-    atomics) sets the band max(3 x spread, :data:`DDP_FLOOR`) per step.
-    Then, each held in that band at every step (loss, parameters, running
-    statistics) with K1-K6 launched per step by every process as by the
-    single one: with ``gloo``, two processes over gloo on one card at B=2
+    each scene's augmentation seeded by its index (:class:`SeededItems`),
+    held by :func:`ddp_case` (one process twice for the band; K6 sums with
+    atomics): with ``gloo``, two processes over gloo on one card at B=2
     each through the port's launcher, process 0 holding K1-K6 of its first
     step against their plain versions at its own shapes; for each world of
-    ``nccl``, that many processes over NCCL, one card each; for each fault
-    of ``faults`` (:data:`DDP_FAULTS`), two gloo processes with the fault
-    planted in their gradient reduction, which must fall outside the band
-    in the loss or the parameters. With ``group_of_one``, one process in
-    an NCCL group of one through the launcher's worker, 2 steps. Prints
-    the collectives a step and their share of a timed step. Returns (the
-    kernel rows held, the launches by path)."""
+    ``nccl``, that many processes over NCCL, one card each; each fault of
+    ``faults``. With ``lovasz``, the same runs and faults of the ScanNet
+    Lovasz config (:func:`lovasz_setup`, under :data:`LOVASZ_HELD`). With
+    ``group_of_one``, one process in an NCCL group of one through the
+    launcher's worker, 2 steps. Prints the collectives a step and their
+    share of a timed step. Returns (the kernel rows held, the launches by
+    path)."""
     from ao_tpu_torch.engines import default_config_parser
     from ao_tpu_torch.engines.launch import distributed_worker, free_port
     from ao_tpu_torch.utils import DictAction
@@ -4129,55 +4389,21 @@ def ddp_phase(device, seed, t0, card="", gloo=True, faults=(), nccl=(),
              "optimizer={'type': 'SGD', 'lr': 0.006, 'momentum': 0.9, "
              "'weight_decay': 0.0001}"]
     log(t0, f"ddp rooms: {[len(r['coord']) for r in rooms]} points")
-
-    def recorded(name, world, backend, *extra):
-        torch.cuda.empty_cache()
-        out = os.path.join(work, name)
-        ranks = run_recorded(base + [f"save_path={out}", *extra], world, out,
-                             device="cuda", backend=backend)
-        log(t0, f"ddp {name}: {world} process(es) done")
-        return ranks
-
-    def launch_failures(label, ranks, one):
-        bad = []
-        for rec in ranks:
-            for i, (s, s1) in enumerate(zip(rec["steps"], one["steps"])):
-                got = {n: s["launches"][n] for n in TRAIN_KERNELS}
-                want = {n: s1["launches"][n] for n in TRAIN_KERNELS}
-                if got != want or not all(got.values()):
-                    bad.append(f"{label} rank {rec['rank']} step {i + 1} "
-                               f"launches {got} vs {want}")
-        return bad
-
-    one = recorded("one", 1, None)[0]
-    again = recorded("one_again", 1, None)[0]
-    spread = compare_records(again, one)
-    band = [{k: max(3 * row[k], DDP_FLOOR[k]) for k in DDP_FLOOR}
-            for row in spread]
-    print(f"ddp: single-process spread {spread}; step seconds "
-          f"{[round(s['seconds'], 4) for s in one['steps']]} and "
-          f"{[round(s['seconds'], 4) for s in again['steps']]}; card {card}",
-          flush=True)
-    failures, launches, holds = [], {}, []
     runs = ([("gloo", 2, "gloo", "record_hold=True")] if gloo else []) + [
         (f"nccl{w}", w, "nccl") for w in nccl]
-    for name, world, backend, *extra in runs:
-        ranks = recorded(name, world, backend, *extra)
-        failures += [f"{name} rank {r} step {i} {k}"
-                     for r, i, k in ddp_hold(name, ranks, one, band)]
-        failures += launch_failures(name, ranks, one)
-        ddp_summary(f"{name}, card {card}", ranks, one)
-        holds += ranks[0]["holds"]
-        launches.update({f"ddp_{name}_rank{r['rank']}": {
-            n: sum(s["launches"][n] for s in r["steps"]) for n in KERNEL_INFO}
-            for r in ranks})
-    for fault in faults:
-        ranks = recorded(f"fault_{fault}", 2, "gloo", f"record_fault={fault}")
-        caught = ddp_hold(f"fault {fault}", ranks, one, band)
-        print(f"ddp: fault {fault!r} planted in the gradient reduction: "
-              f"outside the band at (rank, step, key) {caught}", flush=True)
-        if not {"loss_rel", "params_all"} & {k for _, _, k in caught}:
-            failures.append(f"the band misses the fault {fault!r}")
+    failures, holds, launches, one = ddp_case("s3dis", BASE_CONFIG, base, work,
+                                              runs, faults, t0, card)
+    if lovasz:
+        batch = 4 if any(w > 2 for _, w, *_ in runs) else 2
+        # one process in f32 at B=4 x 102400 would need about 86 GiB
+        lv_base = lovasz_setup(work, batch, seed, t0) + list(LOVASZ_HELD) + (
+            ["model.backbone.enable_checkpoint=True"] if batch > 2 else [])
+        lv_failures, _, lv_launches, _ = ddp_case(
+            "lovasz", LOVASZ_CONFIG, lv_base, work,
+            [(name, world, backend) for name, world, backend, *_ in runs],
+            faults, t0, card, kernels=UNPOOL_KERNELS, repeat=False)
+        failures += lv_failures
+        launches.update(lv_launches)
     if failures:
         raise RuntimeError(f"data-parallel runs disagree with one process: "
                            f"{failures}")
@@ -4220,6 +4446,221 @@ def ddp_phase(device, seed, t0, card="", gloo=True, faults=(), nccl=(),
     launches["ddp_nccl"] = {n: sum(s["launches"][n] for s in steps)
                             for n in KERNEL_INFO}
     return holds, launches
+
+
+# ---------------------------------------------------------------------------
+# phase 18: the raw-data preprocessor, ConcatDataset, the cache and
+# profiler hooks, and the AO_* kernel-path switches on the main path
+
+# the four rooms of phase 17, as raw S3DIS rooms of two areas
+LEFTOVER_AREAS = (1, 1, 2, 2)
+# (switch, value, counted steps, the path's kernels, kernels-line tag):
+# the gathered path (K1's 3 probes at (256, 1152) merged by K2 (3, 16),
+# K3-K6 on gathered rows), the wider slab graph, the exact kNN (gathered
+# K3-K6), the unfused attention (K1 / K2 only); at least 2 steps, as the
+# first sets up the allocator and the loader
+SWITCHES = (
+    ("AO_GVA_SLAB", "0", 3, TRAIN_KERNELS, "gathered"),
+    ("AO_SLAB_W", "512", 2, TRAIN_KERNELS, "slab512"),
+    ("AO_EXACT_KNN", "1", 2, TRAIN_KERNELS, "exact"),
+    ("AO_GVA_FUSED", "0", 2, ("knn_window", "merge_topk"), "unfused"),
+)
+# the switches under which no stage takes the slab path: their GVA calls
+# read gathered rows at every N
+SLAB_OFF = (("AO_GVA_SLAB", "0"), ("AO_EXACT_KNN", "1"))
+# the unfused attention's batches, tried in turn (PT-v2m1, unfused, fits
+# B=3 only with checkpointing)
+UNFUSED_BATCHES = (3, 2, 1)
+
+
+@contextlib.contextmanager
+def env_set(name, value):
+    """The environment variable ``name`` set to ``value`` inside, restored
+    (or removed) after."""
+    before = os.environ.get(name)
+    os.environ[name] = value
+    try:
+        yield
+    finally:
+        if before is None:
+            os.environ.pop(name, None)
+        else:
+            os.environ[name] = before
+
+
+class _Shim:
+    """The parts of a trainer a hook's ``before_train`` reads."""
+
+    def __init__(self, dataset):
+        from ao_tpu_torch.utils.logger import get_root_logger
+
+        self.train_loader = type("Loader", (), {"dataset": dataset})()
+        self.logger = get_root_logger()
+
+
+def check_data_cache(root, work, card):
+    """DataCacheOperator over a plain S3DISDataset of the preprocessed
+    rooms, its cache under an AO_SHM_CACHE in ``work``: every scene cached,
+    every cached array equal to the scene as loaded; clear_cache at the
+    end empties it."""
+    from ao_tpu_torch.datasets import build_dataset, load_scene
+    from ao_tpu_torch.engines.hooks.misc import DataCacheOperator
+    from ao_tpu_torch.utils import cache
+
+    with env_set("AO_SHM_CACHE", os.path.join(work, "shm_cache")):
+        t = time.perf_counter()
+        ds = build_dataset(dict(type="S3DISDataset", split=("Area_1", "Area_2"),
+                                data_root=root, transform=[], cache=True))
+        hook = DataCacheOperator(data_root=root)
+        hook.trainer = _Shim(ds)
+        hook.before_train()
+        fill_s = time.perf_counter() - t
+        if hook.cached != ds.data_list or not ds.data_list:
+            raise RuntimeError(f"cached {hook.cached} of {ds.data_list}")
+        nbytes = 0
+        for path in ds.data_list:
+            entry, scene = cache.shared_dict("ao-" + path), load_scene(path)
+            if sorted(entry) != sorted(scene) or not all(
+                    np.array_equal(entry[k], scene[k]) for k in scene):
+                raise RuntimeError(f"the cache of {path} differs from the scene")
+            nbytes += sum(v.nbytes for v in entry.values())
+        cache.clear_cache()
+        if os.path.exists(cache.cache_root()):
+            raise RuntimeError("clear_cache left the cache in place")
+    print(f"leftovers: DataCacheOperator cached {len(ds.data_list)} scenes "
+          f"({nbytes / 2**20:.1f} MiB) in {fill_s:.2f} s, each array equal to "
+          f"the scene loaded; clear_cache emptied it; card {card}", flush=True)
+
+
+def switch_run(name, value, steps, kernels, batch, options, device, t0, card):
+    """``steps`` train steps of the main path's config with the kernel-path
+    switch ``name`` set to ``value`` (and restored after), every kernel
+    call captured and held against its plain version, each of ``kernels``
+    launched. Returns (rows, launches, launches a step, step seconds, peak
+    GiB)."""
+    label = f"{name}={value} B={batch}"
+
+    def train():  # the run's peak, before the holds
+        trainer = run_train(device, options + [f"batch_size={batch}",
+                                               f"max_steps={steps}"])
+        return trainer, torch.cuda.max_memory_allocated() / 2**30
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with env_set(name, value), StepLaunches() as counted:
+        ((trainer, peak), launches), rows = held(
+            kernels, label, lambda: _drive(kernels, train),
+            gathered=(name, value) in SLAB_OFF)
+    hist = trainer.history
+    if len(hist) != steps or not all(np.isfinite(r["loss"]) for r in hist):
+        raise RuntimeError(f"{label}: steps {hist}")
+    if any(launches[n] != counted.total[n] for n in KERNEL_INFO):
+        raise RuntimeError(f"{label}: launches {launches} besides the train "
+                           f"steps' {counted.total}")
+    seconds = [round(r["step_seconds"], 4) for r in hist]
+    per_step = {n: round(v, 2) for n, v in counted.per_step().items() if v}
+    print(f"leftovers {label}: (B, N) points a step "
+          f"{[r['points'] for r in hist]}, losses "
+          f"{[round(r['loss'], 5) for r in hist]}, step seconds {seconds}, "
+          f"peak memory {peak:.2f} GiB; launches a step {per_step}; card "
+          f"{card}", flush=True)
+    del trainer
+    torch.cuda.empty_cache()
+    log(t0, f"leftovers {label} done")
+    return rows, launches, per_step, seconds, peak
+
+
+def leftovers_phase(device, seed, t0, card=""):
+    """Phase 18. The four rooms of phase 17, written as raw S3DIS rooms of
+    two areas (:func:`write_raw_s3dis`), through the port's
+    ``preprocess_s3dis`` (spawned workers); the main path's config (B=3 x
+    81920, bf16) trained 3 steps on the preprocessed rooms through a
+    ConcatDataset of the two areas, with RuntimeProfilerV2 in its hooks
+    (wait 1, warmup 1, active 1: the third step traced), whose trace file
+    must exist and hold the step's CUDA kernels; DataCacheOperator on a
+    plain S3DIS dataset (:func:`check_data_cache`); then the steps of each
+    of :data:`SWITCHES` (the unfused attention at the first of
+    :data:`UNFUSED_BATCHES` that fits), every kernel call captured and held
+    against its plain version. Prints each switch's step seconds, peak
+    memory and the batch that fit. Returns (rows by kernels-line tag,
+    launches by tag)."""
+    from ao_tpu_torch.datasets.preprocessing import preprocess_s3dis
+    from ao_tpu_torch.utils import Config
+
+    work = tempfile.mkdtemp(prefix="ao_chip_leftovers_")
+    t = time.perf_counter()
+    rooms = {(area, f"office_{i}"): make_room(s_, size) for i, (area, (s_, size))
+             in enumerate(zip(LEFTOVER_AREAS, DDP_ROOMS))}
+    raw, root = os.path.join(work, "raw"), os.path.join(work, "s3dis")
+    write_raw_s3dis(raw, rooms)
+    written = time.perf_counter() - t
+    preprocess_s3dis.main(["--dataset-root", raw, "--output-root", root,
+                           "--num-workers", str(len(rooms))])
+    pre_s = time.perf_counter() - t - written
+    for (area, name), room in rooms.items():
+        with np.load(os.path.join(root, f"Area_{area}", f"{name}.npz")) as z:
+            if not (len(z["coord"]) == len(room["coord"]) and np.array_equal(
+                    np.unique(z["semantic_gt"]), np.unique(room["semantic_gt"]))):
+                raise RuntimeError(f"the preprocessed {area}/{name} differs")
+    log(t0, f"leftovers: {len(rooms)} raw rooms "
+            f"({[len(r['coord']) for r in rooms.values()]} points) written in "
+            f"{written:.1f} s, preprocessed in {pre_s:.1f} s")
+
+    cfg = Config.fromfile(BASE_CONFIG)
+    transform = [dict(t_) for t_ in cfg.data.train.transform]
+    concat = dict(_delete_=True, type="ConcatDataset", datasets=[
+        dict(type="S3DISDataset", split=f"Area_{a}", data_root=root,
+             transform=transform) for a in (1, 2)])
+    hooks = [dict(h) for h in cfg.hooks] + [dict(
+        type="RuntimeProfilerV2", wait=1, warmup=1, active=1, repeat=1)]
+    save = os.path.join(work, "concat")
+    options = [f"save_path={save}", "batch_size=3", "max_steps=3",
+               "num_worker=4", f"seed={seed}", "evaluate=False",
+               "enable_tensorboard=False", f"data.train={concat!r}",
+               f"hooks={hooks!r}"]
+    torch.cuda.reset_peak_memory_stats()
+    trainer, launches = _drive(TRAIN_KERNELS, lambda: run_train(device, options))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    check_train(trainer, 3)
+    ds = trainer.train_loader.dataset
+    trace = os.path.join(save, "profile_v2", "trace_1.json")
+    if type(ds).__name__ != "ConcatDataset" or len(ds.datasets) != 2:
+        raise RuntimeError(f"the train set is {type(ds).__name__}")
+    with open(trace) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = sum(e.get("cat") == "kernel" for e in events)
+    if not kernels:
+        raise RuntimeError(f"{trace} holds no CUDA kernel")
+    hist = trainer.history
+    print(f"leftovers: ConcatDataset of Area_1 / Area_2 "
+          f"({[len(d.data_list) for d in ds.datasets]} rooms), "
+          f"losses {[round(r['loss'], 5) for r in hist]}, step seconds "
+          f"{[round(r['step_seconds'], 4) for r in hist]}, peak memory "
+          f"{peak:.2f} GiB; RuntimeProfilerV2 trace {os.path.getsize(trace)} "
+          f"bytes, {kernels} CUDA kernels; launches {launches}; card {card}",
+          flush=True)
+    del trainer
+    torch.cuda.empty_cache()
+    log(t0, "leftovers: concat train done")
+    check_data_cache(root, work, card)
+
+    plain = [f"save_path={os.path.join(work, 'switch')}", "num_worker=4",
+             f"seed={seed}", "evaluate=False", "enable_tensorboard=False",
+             f"data.train.data_root={root}",
+             "data.train.split=('Area_1', 'Area_2')"]
+    rows, launches_by_tag = {}, {}
+    for name, value, steps, kernels, tag in SWITCHES:
+        batches = UNFUSED_BATCHES if tag == "unfused" else (3,)
+        batch, (rows[tag], got, per_step, seconds, peak) = fit_batch(
+            batches, f"leftovers {name}={value}", card,
+            lambda b: switch_run(name, value, steps, kernels, b, plain, device,
+                                 t0, card))
+        print(f"leftovers {name}={value}: B={batch} x 81920 fits (of "
+              f"{batches}); step seconds {seconds}, peak memory {peak:.2f} "
+              f"GiB; card {card}", flush=True)
+        launches_by_tag[tag] = {f"{tag}_train": got}
+    log(t0, "leftovers phase done")
+    return rows, launches_by_tag
 
 
 def ao_phase(device, seed, t0, rooms, val_room, train_per_step, card=""):
@@ -4384,19 +4825,28 @@ def run(device, seed, t0, room_size=(4.8, 4.0, 2.6), train_steps=5, card="",
     out_rows, out_launches, _ = outdoor_phase(device, seed, t0, card,
                                               workdir=kitti_dir)
     m1_rows, m1_launches, _ = ptv2m1_phase(device, seed, t0, rooms, card)
+    steps = FULL_RUN_STEPS
     sp_rows, sp_launches, _ = sparse_phase(device, seed, t0, card, sc_dir,
-                                           kitti_dir, workdir)
+                                           kitti_dir, workdir, steps=steps)
     hd_rows, hd_launches, _ = heads_phase(device, seed, t0, card, sc_dir, rooms,
+                                          steps=steps,
                                           msc_batches=(MSC_FULL_BATCH,),
                                           msc_steps=MSC_FULL_STEPS)
     v1_rows, v1_launches, _ = ptv1_phase(device, seed, t0, card, rooms, room,
-                                         test_views=FULL_RUN_TEST_VIEWS)
+                                         steps=steps,
+                                         test_views=FULL_RUN_TEST_VIEWS,
+                                         batches=(PTV1_FULL_BATCH,))
     sw_rows, sw_launches, _ = swin3d_phase(device, seed, t0, card, sc_dir,
-                                           views=FULL_RUN_TEST_VIEWS)
-    st_rows, st_launches, _ = stratified_phase(device, seed, t0, card, sc_dir)
-    oc_rows, oc_launches, _ = octformer_phase(device, seed, t0, card, sc_dir)
+                                           steps=steps,
+                                           views=FULL_RUN_TEST_VIEWS,
+                                           traced=False)
+    st_rows, st_launches, _ = stratified_phase(device, seed, t0, card, sc_dir,
+                                               steps=steps)
+    oc_rows, oc_launches, _ = octformer_phase(device, seed, t0, card, sc_dir,
+                                              steps=steps)
     pointcontrast_phase(device, seed, t0, card)
     dd_rows, dd_launches = ddp_phase(device, seed, t0, card)
+    lo_rows, lo_launches = leftovers_phase(device, seed, t0, card)
 
     # one entry per kernel: its heaviest captured shape of the S3DIS paths
     kernels = []
@@ -4447,7 +4897,8 @@ def run(device, seed, t0, room_size=(4.8, 4.0, 2.6), train_steps=5, card="",
             ("swin3d", sw_rows, sw_launches),
             ("stratified", st_rows, st_launches),
             ("octformer", oc_rows, oc_launches),
-            ("ddp", dd_rows, dd_launches)):
+            ("ddp", dd_rows, dd_launches),
+            *((tag, lo_rows[tag], lo_launches[tag]) for tag in lo_rows)):
         for name in sorted({r["name"] for r in phase_rows}):
             row = max((r for r in phase_rows if r["name"] == name),
                       key=lambda r: r["bound_ms"])
@@ -4549,6 +5000,17 @@ def main():
              "DDP_FAULTS planted in their gradient reduction, which must fall "
              "outside phase 17's band")
     parser.add_argument(
+        "--lovasz-spread", nargs="*", default=None, metavar="SETTING",
+        choices=sorted(LOVASZ_SPREADS),
+        help="run only the single-process spread of phase 17's Lovasz case "
+             "and two gloo processes against the single one, under each "
+             "SETTING of LOVASZ_SPREADS (default: all), and no kernel record")
+    parser.add_argument(
+        "--leftovers", action="store_true",
+        help="run only phase 18 (raw S3DIS rooms through the preprocessor, "
+             "a ConcatDataset train with RuntimeProfilerV2, DataCacheOperator, "
+             "the AO_* switches' steps), and no kernel record")
+    parser.add_argument(
         "--ddp-nccl", type=int, nargs="+", default=None, metavar="N",
         help="run only phase 17's single process and, for each N, N processes "
              "over NCCL on N cards held against it (needs N cards), and no "
@@ -4601,16 +5063,22 @@ def main():
     if args.pointcontrast:
         pointcontrast_phase(torch.device("cuda"), args.seed, t0, card,
                             batches=POINTCONTRAST_BATCHES)
+    if args.lovasz_spread is not None:
+        lovasz_spread(args.seed, t0, card,
+                      args.lovasz_spread or tuple(LOVASZ_SPREADS))
     if args.ddp or args.ddp_faults:
         ddp_phase(torch.device("cuda"), args.seed, t0, card,
                   faults=DDP_FAULTS if args.ddp_faults else ())
     if args.ddp_nccl:
         ddp_phase(torch.device("cuda"), args.seed, t0, card, gloo=False,
                   nccl=args.ddp_nccl, group_of_one=False)
+    if args.leftovers:
+        leftovers_phase(torch.device("cuda"), args.seed, t0, card)
     if (args.scannet_batch is not None or args.outdoor_batch is not None
             or args.sparse or args.heads or args.ptv1 or args.swin3d
             or args.stratified or args.octformer or args.pointcontrast
-            or args.ddp or args.ddp_faults or args.ddp_nccl):
+            or args.ddp or args.ddp_faults or args.ddp_nccl
+            or args.lovasz_spread is not None or args.leftovers):
         faulthandler.cancel_dump_traceback_later()
         print(f"card: {card}", flush=True)
         return 0

@@ -6,8 +6,9 @@ its own timeout (tests/torch_ddp_jobs.py), one intra-op thread each.
   (disjoint, together each epoch) and REAL's basket gather;
 * the BatchNorm statistics over the global batch: train-mode GVA through
   K4 / K5 / K3 / K6's plain versions (float64) and through the unfused
-  reference, PointBatchNorm and every per-point loss, one scene a process,
-  against one process on both scenes;
+  reference, PointBatchNorm and every per-point loss, and the Lovasz loss
+  over the global batch, one scene a process, against one process on both
+  scenes;
 * a PT-v2m2 train step over two processes (one scene each) against
   ao_tpu's jitted step on the same two scenes over its mesh of the 8 CPU
   devices of tests/conftest.py, and the port's two-process trainer (its
@@ -51,6 +52,8 @@ PLAIN_TRANSFORM = [
     dict(type="CenterShift", apply_z=True), dict(type="NormalizeColor"),
     dict(type="ToTensor"),
     dict(type="Collect", keys=("coord", "segment"), feat_keys=["coord", "color"])]
+LOVASZ_CONFIG = os.path.join(ROOT, "configs", "scannet",
+                             "semseg-pt-v2m2-3-lovasz.py")
 SPUNET = dict(type="DefaultSegmentor", backbone=dict(
     _delete_=True, type="SpUNet-v1m1", in_channels=6, num_classes=13, base_channels=8,
     channels=(8, 8, 16, 16, 16, 8, 8, 8), layers=(1,) * 8),
@@ -177,14 +180,31 @@ def test_batchnorm_and_losses_over_two_processes(units):
                                    rtol=1e-5, atol=1e-6)
 
 
+def test_lovasz_over_two_processes(units):
+    """LovaszLoss in a train step's global batch over two gloo processes,
+    40 and 33 points (the shorter one padded in the gather), against one
+    process on the 73 points: the sum of the processes' values within
+    1e-6 of the one-process loss and the concatenated logits gradients
+    within 1e-5 of their scale; two collectives a process (the lengths,
+    then the errors and foreground)."""
+    c = jobs.gva_case()
+    value, grad = jobs.lovasz(c, [0, 1])
+    got = [u["lovasz"] for u in units]
+    assert abs(sum(v for v, _ in got) - value) < 1e-6
+    g = torch.cat([x for _, x in got])
+    assert g.shape == grad.shape == (sum(jobs.LOVASZ_POINTS), 5)
+    assert float((g - grad).abs().max()) < 1e-5 * float(grad.abs().max())
+    assert all(u["lovasz_collectives"] == 2 for u in units)
+
+
 # ------------------------------------------------------------------- runs
 
 
-def _backbone():
+def _backbone(**kw):
     """The tiny PT-v2m2 of __graft_entry__ in f32 without stochastic depth
-    (so that no process draws)."""
+    (so that no process draws), with the widths ``kw``."""
     backbone = _flagship_cfg(tiny=True)["backbone"]
-    backbone.update(drop_path_rate=0.0, compute_dtype=None)
+    backbone.update(drop_path_rate=0.0, compute_dtype=None, **kw)
     return f"model.backbone={backbone!r}"
 
 
@@ -202,6 +222,32 @@ def _ptv2_options(root, save, steps=2):
         "eval_epoch=2", f"optimizer={SGD!r}",
         f"data.train.transform={PLAIN_TRANSFORM!r}",
         f"data.val.transform={PLAIN_TRANSFORM!r}", f"save_path={save}"]
+
+
+# the ScanNet scenes' transform without random augmentation: the config's
+# nine input channels (coord, colour, normal)
+SCANNET_TRANSFORM = PLAIN_TRANSFORM[:3] + [dict(
+    type="Collect", keys=("coord", "segment"),
+    feat_keys=["coord", "color", "normal"])]
+
+
+def _lovasz_options(root, save, steps=2):
+    """Two small ScanNet rooms as the train split of
+    configs/scannet/semseg-pt-v2m2-3-lovasz.py (CE + Lovasz criteria) and a
+    third as its validation split, without random transforms or Mix3D, the
+    tiny PT-v2m2 at the config's 9 input channels and 20 classes, SGD, one
+    step an epoch (a global batch of both scenes), ``steps`` steps."""
+    rooms = [chip_smoke.make_scannet_room(s, ROOM, 0.05) for s in (1, 2, 5)]
+    _, options = chip_smoke.scannet_setup(rooms[:2], rooms[2], root,
+                                          batch_size=2, max_steps=steps,
+                                          workers=0, seed=3)
+    return options + [
+        _backbone(in_channels=9, num_classes=20), "pad_multiple=4096",
+        "max_points=102400", "mix_prob=0.0", "data.train.loop=1", "epoch=2",
+        "eval_epoch=2", "evaluate=True", f"optimizer={SGD!r}",
+        f"data.val.data_root={os.path.join(root, 'scannet')}",
+        f"data.train.transform={SCANNET_TRANSFORM!r}",
+        f"data.val.transform={SCANNET_TRANSFORM!r}", f"save_path={save}"]
 
 
 def _jax_init(cfg):
@@ -229,19 +275,31 @@ def runs(tmp_path_factory):
 
     root = str(tmp_path_factory.mktemp("runs"))
     base = _ptv2_options(os.path.join(root, "data"), os.path.join(root, "init"))
-    cfg = default_config_parser(chip_smoke.BASE_CONFIG, {
-        k: DictAction._parse_value(v) for k, v in
-        (o.partition("=")[::2] for o in base)})
-    jmodel, params, stats = _jax_init(cfg)
-    weight = os.path.join(root, "init.pt")
-    torch.save(convert.from_jax_variables(_np(params), _np(stats)), weight)
-    ptv2 = base + [f"weight={weight}", "record_batches=True"]
-    spunet = base + [f"model={SPUNET!r}"]
+    models = {}
+    for name, config, opts in (
+            ("ptv2", chip_smoke.BASE_CONFIG, base),
+            ("lovasz", LOVASZ_CONFIG, _lovasz_options(
+                os.path.join(root, "scannet"), os.path.join(root, "init")))):
+        cfg = default_config_parser(config, {
+            k: DictAction._parse_value(v) for k, v in
+            (o.partition("=")[::2] for o in opts)})
+        jmodel, params, stats = _jax_init(cfg)
+        weight = os.path.join(root, f"init_{name}.pt")
+        torch.save(convert.from_jax_variables(_np(params), _np(stats)), weight)
+        models[name] = dict(cfg=cfg, jmodel=jmodel, params=params,
+                            stats=stats, weight=weight, config=config,
+                            options=opts)
+    weight = models["ptv2"]["weight"]
     spec = []
-    for name, opts in (("ptv2", ptv2), ("spunet", spunet)):
+    for name, config, opts in (
+            ("ptv2", chip_smoke.BASE_CONFIG,
+             base + [f"weight={weight}", "record_batches=True"]),
+            ("spunet", chip_smoke.BASE_CONFIG, base + [f"model={SPUNET!r}"]),
+            ("lovasz", LOVASZ_CONFIG, models["lovasz"]["options"] + [
+                f"weight={models['lovasz']['weight']}", "record_batches=True"])):
         for world in (2, 1):
             spec.append(dict(kind="recorded", name=f"{name}{world}", world=world,
-                             config=chip_smoke.BASE_CONFIG,
+                             config=config,
                              options=opts + [f"save_path={root}/{name}{world}"]))
     for fault in chip_smoke.DDP_FAULTS:
         spec.append(dict(kind="recorded", name=f"fault_{fault}2", world=2,
@@ -262,17 +320,66 @@ def runs(tmp_path_factory):
         "pad_multiple=4096"]))
     with open(os.path.join(root, "runs.json"), "w") as f:
         json.dump(spec, f)
-    _job(["runs", root, os.path.join(root, "runs.json")], 240)
+    _job(["runs", root, os.path.join(root, "runs.json")], 300)
 
     def load(name):
         return [torch.load(os.path.join(root, name, f"rank{r}.pt"),
                            weights_only=False)
                 for r in range(int(name[-1]))]
 
-    return dict(root=root, cfg=cfg, jmodel=jmodel, params=params, stats=stats,
+    return dict(root=root, models=models,
                 **{n: load(n) for n in ("ptv2" + "2", "ptv2" + "1",
-                                        "spunet2", "spunet1")},
+                                        "spunet2", "spunet1", "lovasz2",
+                                        "lovasz1")},
                 faults={f: load(f"fault_{f}2") for f in chip_smoke.DDP_FAULTS})
+
+
+def _hold_to_jax_mesh(runs, name):
+    """Step 1 of the two-process run ``name`` against ao_tpu's jitted train
+    step on the same two scenes over its mesh of 8 CPU devices, from the
+    same weights: the loss within 1e-5 relative, the running statistics
+    within 1e-5 of their scale, the parameters within 2e-2 of the step's
+    change (compare_records)."""
+    from ao_tpu_torch.models.point_transformer_v2 import convert
+
+    m = runs["models"][name]
+    cfg = m["cfg"].to_dict()
+    r0, r1 = (r["steps"][0] for r in runs[name + "2"])
+    keys = ("coord", "feat", "mask", "segment")
+    n = max(r0["batch"]["mask"].shape[1], r1["batch"]["mask"].shape[1])
+
+    def pad(x):
+        return np.pad(x.numpy(), [(0, 0), (0, n - x.shape[1])]
+                      + [(0, 0)] * (x.dim() - 2),
+                      constant_values=-1 if x.dtype != torch.bool and
+                      x.dim() == 2 and x.dtype != torch.float32 else 0)
+
+    batch = {k: np.concatenate([pad(r0["batch"][k]), pad(r1["batch"][k])])
+             for k in keys}
+    jt = object.__new__(JaxTrainer)
+    jt.model = m["jmodel"]
+    jt.criteria = jax_build_criteria(cfg["model"]["criteria"])
+    jt.tx = jax_build_optimizer(dict(cfg["optimizer"]), None,
+                                dict(cfg["scheduler"]), 2)
+    jt.mesh = jt.build_mesh()
+    assert jt.mesh.devices.size == 8
+    jt.cfg = m["cfg"]
+    state = TrainState(step=jnp.zeros((), jnp.int32), params=m["params"],
+                       batch_stats=m["stats"], opt_state=jt.tx.init(m["params"]))
+    state, metrics = jt.make_train_step()(state, jt.put_batch(batch),
+                                          jax.random.PRNGKey(0))
+    assert abs(r0["loss"] - float(metrics["loss"])) < 1e-5 * abs(r0["loss"])
+    sd = convert.from_jax_variables(_np(state.params), _np(state.batch_stats))
+    jax_rec = dict(init=runs[name + "2"][0]["init"], steps=[dict(
+        loss=float(metrics["loss"]),
+        params={k: torch.from_numpy(np.asarray(sd[k])) for k in r0["params"]},
+        stats={k: torch.from_numpy(np.asarray(sd[k])) for k in r0["stats"]})])
+    row = chip_smoke.compare_records(runs[name + "2"][0], jax_rec)[0]
+    assert row["params"] < 2e-2, row
+    for k, v in r0["stats"].items():
+        ref = np.asarray(sd[k])
+        assert np.abs(v.numpy() - ref).max() < 1e-5 * max(np.abs(ref).max(), 1.0), k
+    return row, float(metrics["loss"])
 
 
 def test_ptv2_step_over_two_processes_matches_jax_mesh(runs):
@@ -287,45 +394,17 @@ def test_ptv2_step_over_two_processes_matches_jax_mesh(runs):
     tensor in Frobenius norm (compare_records, floored for tensors that
     barely move; measured 2.1e-3): the jitted JAX gradients move by up to
     ~1e-2 of their norm with f32 rounding (test_torch_train_step.py)."""
-    from ao_tpu_torch.models.point_transformer_v2 import convert
+    _hold_to_jax_mesh(runs, "ptv2")
 
-    cfg = runs["cfg"].to_dict()
-    r0, r1 = (r["steps"][0] for r in runs["ptv2" + "2"])
-    keys = ("coord", "feat", "mask", "segment")
-    n = max(r0["batch"]["mask"].shape[1], r1["batch"]["mask"].shape[1])
 
-    def pad(x):
-        return np.pad(x.numpy(), [(0, 0), (0, n - x.shape[1])]
-                      + [(0, 0)] * (x.dim() - 2),
-                      constant_values=-1 if x.dtype != torch.bool and
-                      x.dim() == 2 and x.dtype != torch.float32 else 0)
-
-    batch = {k: np.concatenate([pad(r0["batch"][k]), pad(r1["batch"][k])])
-             for k in keys}
-    jt = object.__new__(JaxTrainer)
-    jt.model = runs["jmodel"]
-    jt.criteria = jax_build_criteria(cfg["model"]["criteria"])
-    jt.tx = jax_build_optimizer(dict(cfg["optimizer"]), None,
-                                dict(cfg["scheduler"]), 2)
-    jt.mesh = jt.build_mesh()
-    assert jt.mesh.devices.size == 8
-    jt.cfg = runs["cfg"]
-    state = TrainState(step=jnp.zeros((), jnp.int32), params=runs["params"],
-                       batch_stats=runs["stats"],
-                       opt_state=jt.tx.init(runs["params"]))
-    state, metrics = jt.make_train_step()(state, jt.put_batch(batch),
-                                          jax.random.PRNGKey(0))
-    assert abs(r0["loss"] - float(metrics["loss"])) < 1e-5 * abs(r0["loss"])
-    sd = convert.from_jax_variables(_np(state.params), _np(state.batch_stats))
-    jax_rec = dict(init=runs["ptv2" + "2"][0]["init"], steps=[dict(
-        loss=float(metrics["loss"]),
-        params={k: torch.from_numpy(np.asarray(sd[k])) for k in r0["params"]},
-        stats={k: torch.from_numpy(np.asarray(sd[k])) for k in r0["stats"]})])
-    row = chip_smoke.compare_records(runs["ptv2" + "2"][0], jax_rec)[0]
-    assert row["params"] < 2e-2, row
-    for k, v in r0["stats"].items():
-        ref = np.asarray(sd[k])
-        assert np.abs(v.numpy() - ref).max() < 1e-5 * max(np.abs(ref).max(), 1.0), k
+def test_lovasz_step_over_two_processes_matches_jax_mesh(runs):
+    """configs/scannet/semseg-pt-v2m2-3-lovasz.py's step (cross-entropy +
+    Lovasz, the Lovasz term over the global batch: each process's errors
+    sorted with the other's) over two gloo processes at a tiny width
+    against ao_tpu's jitted step on its 8-device mesh, in the band of
+    test_ptv2_step_over_two_processes_matches_jax_mesh."""
+    row, loss = _hold_to_jax_mesh(runs, "lovasz")
+    assert loss > 0 and np.isfinite(loss)
 
 
 @pytest.mark.parametrize("name", ["ptv2", "spunet"])
@@ -360,6 +439,34 @@ def test_two_processes_equal_one(runs, name):
         k: v for k, v in va.items() if k != "seconds"}
     for k in ("mIoU", "mAcc", "allAcc"):
         assert abs(va[k] - vb[k]) < 2e-3, (name, k, va, vb)
+
+
+def test_lovasz_two_processes_equal_one(runs):
+    """The ScanNet Lovasz config's tiny PT-v2m2 over two gloo processes
+    against one process on the same global batch, 2 steps (one an epoch,
+    each ending with the SemSegEvaluator): per step the loss within 1e-5
+    relative (measured 6.0e-8), the parameters with every tensor together
+    within 2e-3 of the step's change (measured 4.1e-4 and 4.3e-4), the worst
+    tensor within 2e-2 (measured 8.0e-3: BatchNorm weights that move by
+    1e-5 at step 1, on the floor of compare_records; the same run with the
+    cross-entropy alone measures 6.8e-3, so the ScanNet scenes set it, not
+    the Lovasz term) and the running statistics within 1e-4; both
+    processes equal after every step; the validation metrics within 2e-3."""
+    two, one = runs["lovasz2"], runs["lovasz1"]
+    assert len(one[0]["steps"]) == 2 == len(two[0]["steps"])
+    for rec in two:
+        for row in chip_smoke.compare_records(rec, one[0]):
+            assert row["loss_rel"] < 1e-5, row
+            assert row["params_all"] < 2e-3 and row["params"] < 2e-2, row
+            assert row["stats"] < 1e-4, row
+        assert all(s["collectives"] > 0 for s in rec["steps"])
+    for a, b in zip(*(r["steps"] for r in two)):
+        assert a["loss"] == b["loss"]
+        for k, v in a["params"].items():
+            assert torch.equal(v, b["params"][k]), k
+    va, vb = two[0]["val"], one[0]["val"]
+    for k in ("mIoU", "mAcc", "allAcc"):
+        assert abs(va[k] - vb[k]) < 2e-3, (k, va, vb)
 
 
 @pytest.mark.parametrize("fault", chip_smoke.DDP_FAULTS)

@@ -18,7 +18,8 @@ clustering library leaves native/ untouched, the PT-v1 and ModelNet40
 configs load and build, with a classification step, its tester and the
 part-segmentation tester run, and every config but the four of the
 backbones not ported yet builds its model (the Swin3D ones their
-datasets)."""
+datasets); each dataset preprocessor's main runs on a micro raw input and
+a ConcatDataset of the preprocessed S3DIS areas loads."""
 
 import os
 import re
@@ -402,6 +403,76 @@ def test_every_config_builds_without_ao_tpu():
                 "6" if kind == "ST-v1m1" else "9", "color+normal")
 
 
+_PREPROCESS = r"""
+import os, sys
+for name in ("jax", "ao_tpu", "flax", "optax"):
+    sys.modules[name] = None
+sys.path.insert(0, "tests")
+import numpy as np
+import chip_smoke
+import preprocessing_inputs as inputs
+from ao_tpu_torch.datasets import build_dataset
+from ao_tpu_torch.datasets.preprocessing import (
+    preprocess_arkitscenes, preprocess_nuscenes_info, preprocess_s3dis,
+    preprocess_scannet, preprocess_structured3d)
+from ao_tpu_torch.ops import ball_query, random_ball_query
+from ao_tpu_torch.utils import cache, path, ply, visualization
+from ao_tpu_torch.utils.events import JSONWriter, get_event_storage
+from ao_tpu_torch.engines.hooks.misc import DataCacheOperator, RuntimeProfilerV2
+tmp = sys.argv[1]
+raw, out = os.path.join(tmp, "raw"), os.path.join(tmp, "out")
+chip_smoke.write_raw_s3dis(os.path.join(raw, "s3dis"), {
+    (1, "office_1"): chip_smoke.make_room(1, (0.8, 0.6, 0.5), 0.1),
+    (2, "office_2"): chip_smoke.make_room(2, (0.8, 0.6, 0.5), 0.1)})
+preprocess_s3dis.main(["--dataset-root", os.path.join(raw, "s3dis"),
+                       "--output-root", os.path.join(out, "s3dis"),
+                       "--num-workers", "2"])
+scans, tsv = inputs.write_scannet_scene(os.path.join(raw, "scannet"))
+preprocess_scannet.main(["--dataset-root", scans, "--output-root",
+                         os.path.join(out, "scannet"), "--label-tsv", tsv,
+                         "--num-workers", "1"])
+preprocess_structured3d.main([
+    "--dataset-root", inputs.write_structured3d_zip(os.path.join(raw, "s3d")),
+    "--output-root", os.path.join(out, "s3d")])
+preprocess_arkitscenes.main([
+    "--dataset-root", inputs.write_arkitscenes_mesh(os.path.join(raw, "ark")),
+    "--output-root", os.path.join(out, "ark")])
+preprocess_nuscenes_info.main([
+    "--dataset-root", inputs.write_nuscenes_db(os.path.join(raw, "nus")),
+    "--output-root", os.path.join(out, "nus"), "--version", "v1.0-mini",
+    "--max-sweeps", "3"])
+ds = build_dataset(dict(type="ConcatDataset", datasets=[
+    dict(type="S3DISDataset", split=a, data_root=os.path.join(out, "s3dis"),
+         transform=[]) for a in ("Area_1", "Area_2")]))
+found = sorted(os.path.relpath(os.path.join(d, n), out)
+               for d, _, names in os.walk(out) for n in names)
+assert len(ds) == 2 and ds[1]["coord"].shape[1] == 3
+assert not any(k == "jax" or k.startswith(("jax.", "ao_tpu.", "flax", "optax"))
+               for k, v in sys.modules.items() if v is not None)
+print("PREPROCESSED", found)
+"""
+
+
+def test_preprocessors_run_without_jax_or_ao_tpu(tmp_path):
+    """With jax and ao_tpu blocked: the new modules import, each
+    preprocessor's main writes its files from a micro raw input
+    (tests/preprocessing_inputs.py; S3DIS over two spawned workers), and a
+    ConcatDataset of the preprocessed S3DIS areas loads."""
+    env = dict(os.environ, PYTHONPATH=ROOT, TMPDIR=str(tmp_path),
+               OMP_NUM_THREADS="1")
+    res = subprocess.run([sys.executable, "-c", _PREPROCESS, str(tmp_path)],
+                         cwd=ROOT, env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert res.returncode == 0, res.stderr[-4000:]
+    assert ("PREPROCESSED ['ark/Training/41069021.npz', "
+            "'ark/Validation/42000001.npz', "
+            "'nus/info/nuscenes_infos_3sweeps_train.pkl', "
+            "'nus/info/nuscenes_infos_3sweeps_val.pkl', "
+            "'s3d/train/scene_00001/room_42.npz', 's3dis/Area_1/office_1.npz', "
+            "'s3dis/Area_2/office_2.npz', 'scannet/train/scene0000_00.npz']"
+            ) in res.stdout
+
+
 def test_port_sources_name_no_jax_no_ao_tpu_no_cpp_extension():
     files = [os.path.join(ROOT, "chip_smoke.py")]
     for d, _, names in os.walk(os.path.join(ROOT, "ao_tpu_torch")):
@@ -447,7 +518,17 @@ def test_port_sources_name_no_jax_no_ao_tpu_no_cpp_extension():
                 "models/octformer/octformer.py", "models/octformer/convert.py",
                 "engines/launch.py", "engines/defaults.py", "tools/test.py",
                 "datasets/preprocessing/preprocess_scannet_pair.py",
-                "models/utils.py", "ops/gva.py"):
+                "models/utils.py", "ops/gva.py",
+                "datasets/preprocessing/preprocess_s3dis.py",
+                "datasets/preprocessing/preprocess_scannet.py",
+                "datasets/preprocessing/preprocess_structured3d.py",
+                "datasets/preprocessing/preprocess_arkitscenes.py",
+                "datasets/preprocessing/preprocess_nuscenes_info.py",
+                "datasets/preprocessing/_pool.py", "datasets/defaults.py",
+                "ops/ball_query.py", "utils/cache.py", "utils/path.py",
+                "utils/ply.py", "utils/visualization.py", "utils/events.py",
+                "utils/checkpoint.py", "utils/misc.py",
+                "models/losses/lovasz.py"):
         assert f"ao_tpu_torch/{mod}" in names
     # the one place that names an ao_tpu module: the module name that the
     # config loader serves from the port's copy (a sys.modules key, never

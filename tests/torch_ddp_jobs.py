@@ -7,7 +7,8 @@ under its own ``timeout`` (a hang fails instead of stalling the run):
 ``units``: two gloo processes started by ao_tpu_torch's launcher check the
 comm helpers, the train sampler's shards, REAL's basket gather, and run
 one train-mode GVA (the kernels' plain versions in float64, and the
-unfused reference), PointBatchNorm and each loss on one scene each,
+unfused reference), PointBatchNorm and each loss (the Lovasz loss on
+unequal point counts) on one scene each,
 writing what each process computed to ``<out>/units<rank>.pt`` (the test
 holds it against one process on both scenes). ``runs``: the recorded
 runs of chip_smoke.run_recorded and the entry points that runs.json
@@ -127,6 +128,29 @@ def bn_and_losses(c, rows):
     return out
 
 
+# the points of each scene of gva_case that the Lovasz check keeps: unequal
+# counts, so that the gather pads the shorter process's errors
+LOVASZ_POINTS = (40, 33)
+
+
+def lovasz(c, rows):
+    """LovaszLoss (its weight 0.7, ignore -1, the case's mask) on the first
+    LOVASZ_POINTS points of each of the scenes ``rows``, concatenated:
+    its value inside ``comm.global_batch()`` (as in the trainer's step)
+    and its logits gradient."""
+    from ao_tpu_torch.models.losses.lovasz import LovaszLoss
+    from ao_tpu_torch.utils import comm
+
+    take = lambda a: np.concatenate([a[r, :LOVASZ_POINTS[r]] for r in rows])  # noqa: E731
+    logits = torch.tensor(take(c["logits"]), dtype=torch.float32,
+                          requires_grad=True)
+    with comm.global_batch():
+        value = LovaszLoss(loss_weight=0.7, ignore_index=-1)(
+            logits, torch.tensor(take(c["target"])), torch.tensor(take(c["mask"])))
+    (g,) = torch.autograd.grad(value, [logits])
+    return float(value.detach()), g
+
+
 def units_worker(out):
     from ao_tpu_torch.engines.train import train_sampler
     from ao_tpu_torch.engines.train_real import merge_baskets
@@ -164,6 +188,9 @@ def units_worker(out):
     c = gva_case()
     res["gva"] = gva_grads(c, [rank], world)
     res["bn"] = bn_and_losses(c, [rank])
+    comm.reset_counts()
+    res["lovasz"] = lovasz(c, [rank])
+    res["lovasz_collectives"] = comm.COUNTS["collectives"]
     comm.reset_counts()
     gva_grads(c, [rank], world)
     res["gva_collectives"] = comm.COUNTS["collectives"]
