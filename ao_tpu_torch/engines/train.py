@@ -61,7 +61,7 @@ from ..datasets import build_dataset, point_collate_fn
 from ..models import build_criteria, build_model
 from ..models.utils import DropPath, Dropout
 from ..ops.knn import knn
-from ..utils import comm, get_root_logger, intersection_and_union
+from ..utils import comm, get_root_logger, intersection_and_union, tracing
 from ..utils.checkpoint import load_checkpoint, save_checkpoint
 from ..utils.env import set_seed
 from ..utils.events import EventStorage, TensorboardWriter
@@ -289,20 +289,27 @@ class Trainer(TrainerBase):
 
     def _step(self, batch):
         """One optimizer step; returns (the metrics as device tensors, the
-        step's logits, detached)."""
+        step's logits, detached). Its three phases are spans
+        (utils/tracing.py): ``step/forward`` (the copies to the device, the
+        forward, the loss), ``step/backward`` (with the reduction across
+        processes) and ``step/optimizer`` (the gradient norm, the optimizer
+        and the schedule)."""
         self.model.train()
-        with comm.global_batch():  # the losses' denominators are global
+        # the losses' denominators are global
+        with tracing.span("step/forward"), comm.global_batch():
             loss, logits, terms = self._loss(batch)
-        self.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        metrics = dict(loss=loss.detach(), **terms,
-                       pool_overflow=self.model.backbone.pool_overflow)
-        if comm.is_distributed():
-            metrics = self._reduce(metrics)
-        grad_norm = torch.nn.utils.get_total_norm(
-            [p.grad for p in self.model.parameters() if p.grad is not None])
-        self.optimizer.step()
-        self.scheduler.step()
+        with tracing.span("step/backward"):
+            self.optimizer.zero_grad(set_to_none=True)
+            loss.backward()
+            metrics = dict(loss=loss.detach(), **terms,
+                           pool_overflow=self.model.backbone.pool_overflow)
+            if comm.is_distributed():
+                metrics = self._reduce(metrics)
+        with tracing.span("step/optimizer"):
+            grad_norm = torch.nn.utils.get_total_norm(
+                [p.grad for p in self.model.parameters() if p.grad is not None])
+            self.optimizer.step()
+            self.scheduler.step()
         metrics["grad_norm"] = grad_norm
         return metrics, None if logits is None else logits.detach()
 

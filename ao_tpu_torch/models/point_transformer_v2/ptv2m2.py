@@ -27,6 +27,12 @@ K4 runs once per resolution and the decoder stage at it reuses them.
 (``torch.utils.checkpoint``, as the JAX package's ``nn.remat``), drawing
 the same random masks and updating no running statistic a second time.
 
+The forward's stages are spans (utils/tracing.py): ``ptv2m2/embed``,
+``ptv2m2/enc<i>`` (pooling and blocks) and ``ptv2m2/dec<i>`` (unpooling
+and blocks), for reading a profiler trace by stage. The checkpoint reruns
+each block, not its stage, so the recomputed blocks run inside the
+trainer's ``step/backward`` and outside every stage span.
+
 The PT-v2m1 attention (``pe_multiplier``, the GroupedLinear weight
 encoding, or no pe bias) is the JAX package's ``_legacy_attention``: its
 stages take the multi-probe graph and relative positions cached per
@@ -57,6 +63,7 @@ from ...ops.interpolation import interpolation
 from ...ops.knn import knn_query
 from ...ops.knn_spatial import (knn_self_presorted, knn_self_spatial,
                                 knn_window_fits, morton_code)
+from ...utils import tracing
 from ..builder import MODELS
 from ..utils import (DropPath, Dropout, PointBatchNorm, dense,
                      update_running_stats)
@@ -618,17 +625,19 @@ class PointTransformerV2(nn.Module):
     def forward(self, coord, feat, mask):
         caps = self.stage_capacities(coord.shape[1])
         pe = self.patch_embed
-        h = torch.relu(pe.proj[1](dense(pe.proj[0], feat), mask))
-        h, knn0 = pe.blocks(h, coord, mask)
+        with tracing.span("ptv2m2/embed"):
+            h = torch.relu(pe.proj[1](dense(pe.proj[0], feat), mask))
+            h, knn0 = pe.blocks(h, coord, mask)
 
         skips = [(coord, h, mask, knn0)]
         clusters = []
         overflow = torch.zeros((), dtype=torch.int64, device=coord.device)
         for i, stage in enumerate(self.enc_stages):
-            coord, h, mask, cluster, over = stage.down(h, coord, mask,
-                                                       caps[i + 1])
-            overflow = overflow + over
-            h, knn_i = stage.blocks(h, coord, mask)
+            with tracing.span(f"ptv2m2/enc{i}"):
+                coord, h, mask, cluster, over = stage.down(h, coord, mask,
+                                                           caps[i + 1])
+                overflow = overflow + over
+                h, knn_i = stage.blocks(h, coord, mask)
             clusters.append(cluster)
             skips.append((coord, h, mask, knn_i))
 
@@ -637,12 +646,13 @@ class PointTransformerV2(nn.Module):
         for i in reversed(range(len(self.dec_stages))):
             skip_coord, skip_feat, skip_mask, skip_knn = skips.pop()
             stage = self.dec_stages[i]
-            h = stage.up(h, coord, mask, skip_feat, skip_coord, skip_mask,
-                         clusters.pop())
-            coord, mask = skip_coord, skip_mask
-            if skip_knn["idx"].shape[-1] != self.dec_neighbours[i]:
-                skip_knn = None  # neighbour count differs; recompute
-            h, _ = stage.blocks(h, coord, mask, skip_knn)
+            with tracing.span(f"ptv2m2/dec{i}"):
+                h = stage.up(h, coord, mask, skip_feat, skip_coord, skip_mask,
+                             clusters.pop())
+                coord, mask = skip_coord, skip_mask
+                if skip_knn["idx"].shape[-1] != self.dec_neighbours[i]:
+                    skip_knn = None  # neighbour count differs; recompute
+                h, _ = stage.blocks(h, coord, mask, skip_knn)
         self.pool_overflow = overflow
 
         if self.num_classes > 0:
