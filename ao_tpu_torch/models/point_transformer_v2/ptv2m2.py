@@ -63,10 +63,10 @@ from ...ops.interpolation import interpolation
 from ...ops.knn import knn_query
 from ...ops.knn_spatial import (knn_self_presorted, knn_self_spatial,
                                 knn_window_fits, morton_code)
+from ...ops.point_bn import update_running_stats
 from ...utils import tracing
 from ..builder import MODELS
-from ..utils import (DropPath, Dropout, PointBatchNorm, dense,
-                     update_running_stats)
+from ..utils import DropPath, Dropout, PointBatchNorm, dense
 
 # Below this point count one curve window covers (nearly) the whole cloud,
 # so a single probe is exact; above it, three probes.
@@ -219,8 +219,10 @@ class GroupedVectorAttention(nn.Module):
         ``pos_moments`` is None and returned for the next block. The legacy
         attention reads the relative positions ``pos`` (B, N, S, 3)."""
         dt = self.dtype
-        q = torch.relu(self.linear_q[1](dense(self.linear_q[0], feat, dt), mask))
-        k = torch.relu(self.linear_k[1](dense(self.linear_k[0], feat, dt), mask))
+        q = self.linear_q[1](dense(self.linear_q[0], feat, dt), mask,
+                             relu=True)
+        k = self.linear_k[1](dense(self.linear_k[0], feat, dt), mask,
+                             relu=True)
         v = dense(self.linear_v, feat, dt)
         if self.legacy:
             return self._legacy_attention(q, k, v, pos, idx, idx_valid,
@@ -248,7 +250,7 @@ class GroupedVectorAttention(nn.Module):
 
     def _pe(self, mlp, pos, idx_valid):
         """Linear(3, C) -> BN over the valid edges -> ReLU -> Linear(C, C)."""
-        h = torch.relu(mlp[1](dense(mlp[0], pos, self.dtype), idx_valid))
+        h = mlp[1](dense(mlp[0], pos, self.dtype), idx_valid, relu=True)
         return dense(mlp[3], h, self.dtype)
 
     def _legacy_attention(self, q, k, v, pos, idx, idx_valid, mask):
@@ -277,7 +279,7 @@ class GroupedVectorAttention(nn.Module):
             w = we[0](relation)
         else:
             w = dense(we[0], relation, dt)
-        w = torch.relu(we[1](w, idx_valid))
+        w = we[1](w, idx_valid, relu=True)
         w = dense(we[3], w, dt)
         w = torch.where(idx_valid[..., None], w.float(), -math.inf)
         w = torch.where(idx_valid[..., None], torch.softmax(w, dim=2), 0.0)
@@ -311,10 +313,10 @@ class Block(nn.Module):
     def forward(self, feat, coord6, idx, idx_valid, mask, fused,
                 pos_moments=None, pos=None):
         identity = feat
-        h = torch.relu(self.norm1(dense(self.fc1, feat, self.dtype), mask))
+        h = self.norm1(dense(self.fc1, feat, self.dtype), mask, relu=True)
         h, pos_moments = self.attn(h, coord6, idx, idx_valid, mask, fused,
                                    pos_moments, pos)
-        h = torch.relu(self.norm2(h, mask))
+        h = self.norm2(h, mask, relu=True)
         h = self.norm3(dense(self.fc3, h, self.dtype), mask)
         h = torch.relu(identity + self.drop_path(h))
         return torch.where(mask[..., None], h, 0.0), pos_moments
@@ -478,7 +480,7 @@ class GridPool(nn.Module):
         self.norm = PointBatchNorm(out_channels)
 
     def forward(self, feat, coord, mask, max_clusters):
-        h = torch.relu(self.norm(dense(self.fc, feat), mask))
+        h = self.norm(dense(self.fc, feat), mask, relu=True)
         pc, pf, pm, cluster, n_clusters = grid_pool(
             coord, h, mask, self.grid_size, max_clusters)
         overflow = torch.clamp_min(n_clusters - max_clusters, 0).sum()
@@ -501,14 +503,14 @@ class UnpoolWithSkip(nn.Module):
 
     def forward(self, feat, coord, mask, skip_feat, skip_coord, skip_mask,
                 cluster):
-        h = torch.relu(self.proj[1](dense(self.proj[0], feat), mask))
+        h = self.proj[1](dense(self.proj[0], feat), mask, relu=True)
         if self.backend == "map" and cluster is not None:
             up = unpool_map(h, cluster, skip_mask)
         else:
             up = interpolation(coord, skip_coord, h, mask, skip_mask, k=3)
         if self.skip:
-            s = torch.relu(self.proj_skip[1](
-                dense(self.proj_skip[0], skip_feat), skip_mask))
+            s = self.proj_skip[1](dense(self.proj_skip[0], skip_feat),
+                                  skip_mask, relu=True)
             up = up + s
         return torch.where(skip_mask[..., None], up, 0.0)
 
@@ -626,7 +628,7 @@ class PointTransformerV2(nn.Module):
         caps = self.stage_capacities(coord.shape[1])
         pe = self.patch_embed
         with tracing.span("ptv2m2/embed"):
-            h = torch.relu(pe.proj[1](dense(pe.proj[0], feat), mask))
+            h = pe.proj[1](dense(pe.proj[0], feat), mask, relu=True)
             h, knn0 = pe.blocks(h, coord, mask)
 
         skips = [(coord, h, mask, knn0)]
@@ -657,7 +659,7 @@ class PointTransformerV2(nn.Module):
 
         if self.num_classes > 0:
             g = dense(self.seg_head[0], h)
-            g = torch.relu(self.seg_head[1](g, mask))
+            g = self.seg_head[1](g, mask, relu=True)
             return dense(self.seg_head[3], g)
         return h
 

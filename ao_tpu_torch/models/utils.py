@@ -7,7 +7,7 @@ from typing import Optional
 import torch
 from torch import nn
 
-from ..utils import comm
+from ..ops.point_bn import point_batch_norm
 
 
 class PointBatchNorm(nn.Module):
@@ -17,49 +17,22 @@ class PointBatchNorm(nn.Module):
     running mean and the running variance, the latter unbiased, with
     ``momentum`` (torch's: the batch statistic's weight; 0.1 by default);
     eval mode normalises with the running statistics. Padded
-    rows come out zero. ``norm`` is a BatchNorm1d so that parameter names
+    rows come out zero. ``relu=True`` applies the ReLU that follows the
+    norm at most call sites inside the same computation (the card's kernels
+    fuse it). ``norm`` is a BatchNorm1d so that parameter names
     follow the reference (``<name>.norm.weight`` ...). Under a process
-    group the statistics are the global batch's (``comm.global_moments``),
-    as the JAX package's are over its data mesh axis."""
+    group the statistics are the global batch's, as the JAX package's are
+    over its data mesh axis. The computation is
+    :func:`~ao_tpu_torch.ops.point_bn.point_batch_norm`: hand-written
+    kernels on the card, its plain version on the CPU."""
 
     def __init__(self, features: int, eps: float = 1e-5, momentum: float = 0.1):
         super().__init__()
         self.norm = nn.BatchNorm1d(features, eps=eps, momentum=momentum)
 
-    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None):
-        n = self.norm
-        xf = x.float()
-        if self.training:
-            dims = tuple(range(x.dim() - 1))
-            if comm.is_distributed():
-                mean, var, cnt = comm.global_moments(xf, mask, dims)
-            elif mask is None:
-                cnt = torch.tensor(float(xf[..., 0].numel()), device=x.device)
-                mean = xf.mean(dims)
-                var = ((xf - mean) ** 2).mean(dims)
-            else:
-                m = mask.float()[..., None]
-                cnt = torch.clamp_min(m.sum(), 1.0)
-                mean = (xf * m).sum(dims) / cnt
-                var = (((xf - mean) ** 2) * m).sum(dims) / cnt
-            update_running_stats(n, mean, var, cnt, n.momentum)
-        else:
-            mean, var = n.running_mean, n.running_var
-        y = (xf - mean) * torch.rsqrt(var + n.eps)
-        y = y * n.weight + n.bias
-        if mask is not None:
-            y = torch.where(mask[..., None], y, 0.0)
-        return y.to(x.dtype)
-
-
-@torch.no_grad()
-def update_running_stats(bn: nn.BatchNorm1d, mean, var, n, momentum=0.1):
-    """torch's BatchNorm1d running update from a batch's mean, biased
-    variance and count: the variance enters unbiased, n / max(n - 1, 1)."""
-    unbiased = var * n / torch.clamp_min(n - 1.0, 1.0)
-    bn.running_mean.mul_(1 - momentum).add_(momentum * mean.detach())
-    bn.running_var.mul_(1 - momentum).add_(momentum * unbiased.detach())
-    bn.num_batches_tracked += 1
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
+                relu: bool = False):
+        return point_batch_norm(x, mask, self.norm, self.training, relu)
 
 
 class DropPath(nn.Module):

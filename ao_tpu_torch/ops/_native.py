@@ -36,6 +36,7 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
+_F = ctypes.c_float
 # launcher name -> argtypes (pointers and the stream are c_void_p)
 _SIGNATURES = {
     # keys, k2, order, queries, window_starts, d2_out, idx_out,
@@ -69,6 +70,20 @@ _SIGNATURES = {
     "gva_bwd_blocks_per_sm": [_I, ctypes.POINTER(_I)],
     # xyz planes, mask, scratch, out, B, N, m, start_idx, stream
     "fps_launch": [_P] * 4 + [_I] * 4 + [_P],
+    # PointBatchNorm (csrc/point_bn.cu); every launch ends in R, C, bf,
+    # vec, lanes, gx. x, mask, part, ..., stream
+    "point_bn_sum_launch": [_P] * 3 + [_I] * 6 + [_P],
+    # x, mask, sums, part, stats, nrow, ..., stream
+    "point_bn_sqdev_launch": [_P] * 5 + [_I] * 7 + [_P],
+    # x, mask, sq, stats, weight, bias, running_mean, running_var,
+    # num_batches_tracked, y, nrow, ..., train, relu, eps, momentum,
+    # 1 - momentum, stream
+    "point_bn_norm_launch": [_P] * 10 + [_I] * 9 + [_F] * 3 + [_P],
+    # x, mask, g, stats, weight, bias, part, ..., relu, stream
+    "point_bn_bwd_sums_launch": [_P] * 7 + [_I] * 7 + [_P],
+    # x, mask, g, stats, weight, bias, part, dweight, dbias, dx, nrow, ...,
+    # train, relu, stream
+    "point_bn_bwd_dx_launch": [_P] * 10 + [_I] * 9 + [_P],
 }
 
 _lib = None

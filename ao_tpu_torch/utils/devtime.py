@@ -37,15 +37,17 @@ def trace(fn, reps: int = 1, warmup: int = 1):
             sum(e.count for e in events) / reps, events)
 
 
-def device_ms(fn, name: str, reps: int = 10, warmup: int = 2) -> float:
+def device_ms(fn, name, reps: int = 10, warmup: int = 2) -> float:
     """Device milliseconds per call of ``fn`` in the CUDA kernels whose names
-    contain ``name``, over ``reps`` traced calls: each such kernel's mean
-    time per launch, summed over the kernels (each launched once a call).
+    contain ``name`` (a string, or a tuple of strings of which one), over
+    ``reps`` traced calls: each such kernel's mean time per launch, summed
+    over the kernels (each launched once a call).
     A trace that lost some launches' events still gives their mean; one
     that lost them all is taken again, up to three times."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    names = (name,) if isinstance(name, str) else tuple(name)
     seen = set()
     for _ in range(3):
         with torch.profiler.profile(activities=list(_ACTIVITIES)) as prof:
@@ -54,7 +56,7 @@ def device_ms(fn, name: str, reps: int = 10, warmup: int = 2) -> float:
             torch.cuda.synchronize()
         cuda = [e for e in prof.key_averages()
                 if str(e.device_type).endswith("CUDA") and e.count > 0]
-        hits = [e for e in cuda if name in e.key]
+        hits = [e for e in cuda if any(n in e.key for n in names)]
         if hits:
             return sum(e.self_device_time_total / e.count for e in hits) / 1e3
         seen.update(e.key[:60] for e in cuda)

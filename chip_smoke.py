@@ -34,10 +34,18 @@ ST-v1m2) and OctFormer-v1m1 at those of their ScanNet configs.
 4. Train kernel phase: one train step of the train phase's batch (three
    synthetic rooms of about 80k voxels each, B=3 x 81920, every stage on
    the slab path) and one of the small batch (deep stages gathered), with
-   all six kernels of the train path captured (K1 and K2 at the train
-   batch's own graphs, K3 with batch-statistic folds, K4 position
-   moments, K5 weight-BN statistics, K6 backward); each held against its
-   plain version and timed as in 2.
+   all seven kernel wrappers of the train path captured (K1 and K2 at the
+   train batch's own graphs, K3 with batch-statistic folds, K4 position
+   moments, K5 weight-BN statistics, K6 backward, and PointBatchNorm's
+   five kernels at the first call of each width and kind); each held
+   against its plain version and timed as in 2 (PointBatchNorm through a
+   forward and backward: y, dx, the parameter gradients and the running
+   statistics against the PyTorch composite under autograd). Each step's
+   PointBatchNorm calls must launch five kernels each, and so must the
+   train phase's steps. Then PointBatchNorm's cases (BN_CASES: the
+   benchmark cells' widths at B=12, the scalar path, no mask, an
+   all-masked batch; train and eval) held the same way; ``--point-bn``
+   runs them alone.
 5. Train phase: a few steps of the base config's hook-driven Trainer
    through the port's entry point (ao_tpu_torch.tools.train) on the three
    rooms, with the config's hooks (CheckpointLoader, IterationTimer,
@@ -301,10 +309,11 @@ OctFormer's 2, and Swin3D no traced step; each phase's flag runs it at
 the depth above.
 
 Each main path (the slice phase, the train phase, the REAL run, the
-ScanNet test and train runs, every train and test run of phases 8-15 and
+ScanNet test and train runs, every train and test run of phases 8-16 and
 18)
 runs with every kernel's launch count set to 0 just before it and read
-just after, and fails if one of its kernels never launched. The last
+just after, and fails if one of its kernels never launched (PointBatchNorm's
+on every path but the Stratified Transformer's and OctFormer's). The last
 three lines are the card, the kernels' JSON record (one entry per kernel,
 then one per new instance of the ScanNet config, then one per kernel of
 the outdoor, PT-v2m1, sparse, CAC, PT-v1, Swin3D, Stratified, OctFormer,
@@ -317,7 +326,9 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import copy
 import faulthandler
+import functools
 import json
 import math
 import os
@@ -369,11 +380,22 @@ KERNEL_INFO = {
     "fps": dict(
         route="cuda", source="ao_tpu_torch/csrc/fps.cu",
         replaces="ao_tpu/ops/sampling.py:22 (XLA fori_loop, no TPU kernel)"),
+    # no TPU kernel: ao_tpu's PointBatchNorm is XLA ops; five kernels (two
+    # statistics passes, the normalisation, the backward's sums and dx)
+    # behind one wrapper, ops/point_bn.py
+    "point_bn": dict(
+        route="cuda", source="ao_tpu_torch/csrc/point_bn.cu",
+        replaces="none: ao_tpu/models/utils.py PointBatchNorm (XLA ops)"),
 }
-# the kernels of each main path (all six of PT-v2 run in a train step)
-SLICE_KERNELS = ("knn_window", "merge_topk", "gva_eval")
+# the kernels of each main path (all six of PT-v2 run in a train step, and
+# PointBatchNorm's in every model but the Stratified Transformer and
+# OctFormer)
+SLICE_KERNELS = ("knn_window", "merge_topk", "gva_eval", "point_bn")
 TRAIN_KERNELS = ("knn_window", "merge_topk", "gva_eval", "gva_pos",
-                 "gva_stats", "gva_bwd")
+                 "gva_stats", "gva_bwd", "point_bn")
+# PointBatchNorm's kernels alone, and with the unfused attention's K1 / K2
+BN_KERNELS = ("point_bn",)
+GRAPH_BN_KERNELS = ("knn_window", "merge_topk", "point_bn")
 # (make_room seed, room size in m) of the train phase's three rooms: over
 # 100k voxels of 0.04 m each, so that after the train transforms
 # (RandomScale down to 0.9) SphereCrop keeps 80000 points and the batch
@@ -532,24 +554,39 @@ def _shape_key(a):
 
 
 def _clone(a):
-    if torch.is_tensor(a):
-        return a.clone()
+    if torch.is_tensor(a):  # no graph: a wrapper outside autograd's Functions
+        return a.detach().clone()
+    if isinstance(a, torch.nn.Module):  # a BatchNorm1d as at the call
+        with torch.inference_mode(False):
+            return copy.deepcopy(a)
     if isinstance(a, dict):
-        return {k: v.clone() for k, v in a.items()}
+        return {k: v.detach().clone() for k, v in a.items()}
     if isinstance(a, (tuple, list)):
         return type(a)(_clone(x) for x in a)
     return a
+
+
+def _bn_key(x, mask, bn, training, relu=False):
+    """PointBatchNorm's capture key: its width, type and kind, so that a
+    run keeps the first (largest) call of each width."""
+    return (x.shape[-1], x.dtype, x.dim(), mask is None, training, relu)
+
+
+# kernels whose calls are told apart by more or less than their shapes
+CAPTURE_KEYS = {"point_bn": _bn_key}
 
 
 class Capture:
     """Wraps the kernel wrappers so that the inputs of the first call of
     each (kernel, shape) are kept for the comparison with the plain
     versions: of every shape, or of the first ``limit[name]`` shapes of a
-    kernel named there. Launches count as they would unwrapped, so a
-    counted run may be captured too."""
+    kernel named there (a key of :data:`CAPTURE_KEYS` in place of the
+    shapes); ``counts`` holds every call's. Launches count as they would
+    unwrapped, so a counted run may be captured too."""
 
     def __init__(self, limit=None):
         self.calls = {}
+        self.counts = {}
         self.limit = dict(limit or {})
         self._undo = []
 
@@ -557,8 +594,10 @@ class Capture:
         fn = getattr(module, attr)
 
         def rec(*args):
-            key = (name,) + tuple(_shape_key(a) for a in args
-                                  if not isinstance(a, dict))
+            self.counts[name] = self.counts.get(name, 0) + 1
+            key = (name,) + (CAPTURE_KEYS[name](*args) if name in CAPTURE_KEYS
+                             else tuple(_shape_key(a) for a in args
+                                        if not isinstance(a, dict)))
             seen = sum(c[0] == name for c in self.calls.values())
             if key not in self.calls and seen < self.limit.get(name, seen + 1):
                 self.calls[key] = (name, fn, [_clone(a) for a in args])
@@ -578,6 +617,7 @@ class Capture:
     def wrap_path(self, names):
         """Wrap the wrappers of ``names`` (kernel names of
         :data:`KERNEL_INFO`) where the paths call them."""
+        from ao_tpu_torch.models import utils as model_utils
         from ao_tpu_torch.models.point_transformer import ptv1
         from ao_tpu_torch.ops import gva as gva_mod
         from ao_tpu_torch.ops import knn_spatial as ks
@@ -589,6 +629,8 @@ class Capture:
                 self.wrap(ks, name, name)
             elif name == "fps":  # PT-v1's TransitionDown calls it by this name
                 self.wrap(ptv1, "farthest_point_sampling", name)
+            elif name == "point_bn":  # PointBatchNorm.forward calls it there
+                self.wrap(model_utils, "point_batch_norm", name)
             else:
                 self.wrap(gva_mod, name, name)
         return self
@@ -841,7 +883,138 @@ def check_fps(args, out_k, out_p):
         f"indices differing {int(err)}; chain {chain_ms:.4f} ms")
 
 
+@contextlib.contextmanager
+def _local_comm():
+    """No process group while a hold runs: process 0 of a data-parallel run
+    holds its calls alone while the others wait, so PointBatchNorm's
+    statistics and gradients stay its own on both sides (the steps
+    themselves ran with the global ones)."""
+    from ao_tpu_torch.utils import comm
+
+    distributed, comm.is_distributed = comm.is_distributed, lambda: False
+    try:
+        yield
+    finally:
+        comm.is_distributed = distributed
+
+
+def point_bn_plain(x, mask, bn, training, relu=False):
+    """PointBatchNorm's plain version (the PyTorch composite the kernels
+    replace) with the wrapper's signature."""
+    from ao_tpu_torch.ops.point_bn import point_batch_norm_plain
+
+    return point_batch_norm_plain(x, mask, bn.weight, bn.bias, bn, training,
+                                  relu)[0]
+
+
+# the band around 0 of a fused ReLU's input, as a share of its terms' size,
+# inside which f32 cannot tell its sign: the two sides' statistics differ
+# in their last bits (sums in another order), and that moves t by a few
+# units of 2^-24 of the terms, times log2 of the rows
+BN_UNDECIDED = 2.0 ** -14
+
+
+def point_bn_grad(x, mask, bn, training, relu=False):
+    """The output gradient a hold of PointBatchNorm feeds both sides: drawn
+    from a fixed seed, and with the ReLU 0 at the valid rows' elements
+    whose input t = (x - mean) rstd w + b (f64 statistics) lies within
+    :data:`BN_UNDECIDED` of its terms' size of 0. There either side may
+    gate, and one gated element moves dbias by its gradient, far past the
+    band of a sum."""
+    with torch.inference_mode(False), torch.no_grad():
+        gen = torch.Generator(device=x.device).manual_seed(0)
+        g = torch.randn(x.shape, generator=gen, device=x.device)
+        if relu:
+            dims = tuple(range(x.dim() - 1))
+            xd = x.double()
+            m = (torch.ones(x.shape[:-1], dtype=torch.bool, device=x.device)
+                 if mask is None else mask)[..., None].double()
+            n = torch.clamp_min(m.sum(), 1.0)
+            if training:
+                mean = (xd * m).sum(dims) / n
+                var = (((xd - mean) ** 2) * m).sum(dims) / n
+            else:
+                mean, var = bn.running_mean.double(), bn.running_var.double()
+            rstd = torch.rsqrt(var + bn.eps)
+            w, b = bn.weight.double(), bn.bias.double()
+            t = (xd - mean) * rstd * w + b
+            size = ((xd.abs() + (xd.abs() * m).sum(dims) / n + mean.abs())
+                    * rstd * w.abs() + b.abs())
+            undecided = (t.abs() <= BN_UNDECIDED * size) & (m > 0)
+            g = torch.where(undecided, 0.0, g)
+            del xd, m, t, size, undecided
+        return g.to(x.dtype)
+
+
+def point_bn_run(fwd, x, mask, bn, training, relu=False, g=None):
+    """(y, dx, dweight, dbias, running mean, running var,
+    num_batches_tracked, the output gradient) of one forward and backward
+    through ``fwd`` (the kernels' wrapper, or :func:`point_bn_plain` under
+    autograd) on copies of x, the mask and ``bn``, the output gradient
+    ``g`` (:func:`point_bn_grad` where None); the statistics local
+    (:func:`_local_comm`)."""
+    if g is None:
+        g = point_bn_grad(x, mask, bn, training, relu)
+    with torch.inference_mode(False), torch.enable_grad(), _local_comm():
+        bn = copy.deepcopy(bn)
+        xr = x.clone().requires_grad_()
+        mask = None if mask is None else mask.clone()
+        y = fwd(xr, mask, bn, training, relu)
+        y.backward(g)
+    return (y.detach(), xr.grad, bn.weight.grad, bn.bias.grad,
+            bn.running_mean, bn.running_var, bn.num_batches_tracked, g)
+
+
+def point_bn_runs(kernel, plain, args):
+    """The kernels' and the plain version's forward and backward
+    (:func:`point_bn_run`) on ``args``, with one output gradient."""
+    g = point_bn_grad(*args)
+    return (functools.partial(point_bn_run, kernel, g=g),
+            functools.partial(point_bn_run, plain, g=g))
+
+
+BN_OUTPUTS = ("y", "dx", "dweight", "dbias", "running_mean", "running_var")
+
+
+def check_point_bn(args, out_k, out_p):
+    """PointBatchNorm's kernels against the composite (both through
+    :func:`point_bn_run`): an element is off beyond 1e-2 of its tensor's
+    scale in bf16 (1e-5 in f32) in y and dx, beyond 1e-4 in the parameter
+    gradients and running statistics; a call passes with at most 1e-4 of
+    each tensor's elements off (bf16 outputs may differ by a rounding where
+    the statistics differ in their last bits, and a fused ReLU's gate with
+    them) and num_batches_tracked equal; the note counts the elements whose
+    output gradient :func:`point_bn_grad` set to 0. Bound: x read and y
+    written forward, x and g read and dx written backward, each once, and
+    the mask read twice; about 24 f32 operations an element."""
+    x, mask = args[:2]
+    tol = 1e-2 if x.dtype == torch.bfloat16 else 1e-5
+    ok = int(out_k[6]) == int(out_p[6])
+    errs, notes = [], []
+    for name, a, b in zip(BN_OUTPUTS, out_k, out_p):
+        a, b = a.float(), b.float()
+        scale = max(float(b.abs().max()), 1e-6)
+        diff = (a - b).abs()
+        band = (tol if name in ("y", "dx") else 1e-4) * scale
+        ok = ok and float((diff > band).float().mean()) <= 1e-4
+        errs.append(float(diff.max()))
+        notes.append(f"{name} {errs[-1] / scale:.2g}")
+    nbytes = 5 * _nbytes(x) + (0 if mask is None else 2 * _nbytes(mask))
+    bound_ms, by = _bound(nbytes, f32_ops=24.0 * x.numel())
+    undecided = int((out_p[7] == 0).sum()) if len(args) > 4 and args[4] else 0
+    return ok, max(errs), bound_ms, by, None, (
+        f"batches {int(out_k[6])}/{int(out_p[6])}; undecided gates "
+        f"{undecided}; rel " + " ".join(notes))
+
+
 def describe(name, args, gathered=False):
+    if name == "point_bn":
+        x, mask, _, training = args[:4]
+        relu = args[4] if len(args) > 4 else False
+        valid = "none" if mask is None else f"{float(mask.float().mean()):.3f}"
+        return (f"x={tuple(x.shape)} {str(x.dtype)[6:]} valid={valid} "
+                f"{'train' if training else 'eval'} relu={relu} "
+                f"{'vector' if x.shape[-1] % 8 == 0 else 'scalar'}")
     if name == "fps":
         coord, mask, m = args[:3]
         return (f"B={coord.shape[0]} N={coord.shape[1]} m={m} "
@@ -868,7 +1041,14 @@ PLAIN = {}  # kernel name -> its plain version, filled by plain_versions()
 CHECKS = {"knn_window": check_knn_window, "merge_topk": check_merge_topk,
           "gva_eval": check_gva_eval, "gva_pos": check_gva_pos,
           "gva_stats": check_gva_stats, "gva_bwd": check_gva_bwd,
-          "fps": check_fps}
+          "fps": check_fps, "point_bn": check_point_bn}
+# kernels held through runs of their wrapper and plain version (forward and
+# backward, made from the captured arguments) rather than a call, and the
+# names of their device kernels
+RUNS = {"point_bn": point_bn_runs}
+DEVICE_NAMES = {"point_bn": ("::sum_kernel<", "::sqdev_kernel<",
+                             "::norm_kernel<", "::bwd_sums_kernel<",
+                             "::bwd_dx_kernel<")}
 
 
 def plain_versions():
@@ -880,7 +1060,8 @@ def plain_versions():
                  merge_topk=ks.merge_topk_probes_plain,
                  gva_eval=g.gva_eval_plain, gva_pos=g.gva_pos_plain,
                  gva_stats=g.gva_stats_plain, gva_bwd=g.gva_bwd_plain,
-                 fps=sampling.farthest_point_sampling_plain)
+                 fps=sampling.farthest_point_sampling_plain,
+                 point_bn=point_bn_plain)
     return PLAIN
 
 
@@ -903,7 +1084,7 @@ def _device_ms(fn, name, **kw):
 # FPS's plain version runs its m steps as separate launches (seconds at
 # 81920 points), and the kernel's steps run in sequence (a tenth of a
 # second)
-TIMING_REPS = {"fps": (3, 1)}
+TIMING_REPS = {"fps": (3, 1), "point_bn": (5, 2)}
 
 
 def hold_captured(cap, phase, gathered=False):
@@ -911,26 +1092,31 @@ def hold_captured(cap, phase, gathered=False):
     (kernel, shape) and time both; raise if one disagrees. ``ms`` is the
     wrapper's time per call (CUDA events around back-to-back calls, host
     work included), ``device_ms`` the kernel's own device time per launch
-    (torch.profiler; None where no trace recorded it). ``gathered``: the
-    run took the gathered path at every N (:func:`describe`)."""
+    (torch.profiler; None where no trace recorded it); a kernel of
+    :data:`RUNS` is held and timed through a forward and backward of its
+    wrapper and of its plain version. ``gathered``: the run took the
+    gathered path at every N (:func:`describe`)."""
     plain = plain_versions()
     rows, failures = [], []
     for key, (name, fn, args) in cap.calls.items():
         reps, plain_reps = TIMING_REPS.get(name, (10, 3))
+        kern, ref = fn, plain[name]
+        if name in RUNS:
+            kern, ref = RUNS[name](kern, ref, args)
         with torch.inference_mode():
-            out_k = fn(*args)
+            out_k = kern(*args)
             out = []
             # with one timed call, the compared call is the timed one
-            first_ms = cuda_ms(lambda: out.append(plain[name](*args)), reps=1,
+            first_ms = cuda_ms(lambda: out.append(ref(*args)), reps=1,
                                warmup=0)
             out_p = out[0]
             ok, err, bound_ms, by, lib_ms, note = CHECKS[name](args, out_k, out_p)
             del out_k, out_p, out
-            ms = cuda_ms(lambda: fn(*args), reps=reps, warmup=min(reps, 2))
-            dev_ms = _device_ms(lambda: fn(*args), name, reps=min(reps, 5),
-                                warmup=0)
+            ms = cuda_ms(lambda: kern(*args), reps=reps, warmup=min(reps, 2))
+            dev_ms = _device_ms(lambda: kern(*args), DEVICE_NAMES.get(name, name),
+                                reps=min(reps, 5), warmup=0)
             plain_ms = first_ms if plain_reps == 1 else cuda_ms(
-                lambda: plain[name](*args), reps=plain_reps, warmup=1)
+                lambda: ref(*args), reps=plain_reps, warmup=1)
         row = dict(name=name, phase=phase, shape=describe(name, args, gathered),
                    ok=ok,
                    max_abs_err=err, ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
@@ -971,6 +1157,7 @@ def kernel_phase(model, batches, t0, device):
     cap.wrap(ks, "knn_window", "knn_window")
     cap.wrap(ks, "merge_topk_probes", "merge_topk")
     cap.wrap(ptv2m2, "gva_eval", "gva_eval")
+    cap.wrap_path(BN_KERNELS)
     try:
         for label, coord, feat, mask in batches:
             with torch.inference_mode():
@@ -991,28 +1178,99 @@ def kernel_phase(model, batches, t0, device):
 def train_kernel_phase(trainer, batches, t0):
     """One train step on each (label, batch) with every kernel wrapper of the
     train path captured (K1 and K2 at the train batch's own graphs, K3 with
-    batch-statistic folds, K4, K5, K6), then each held against its plain
-    version and timed."""
+    batch-statistic folds, K4, K5, K6, PointBatchNorm's at each width),
+    then each held against its plain version and timed. Every
+    PointBatchNorm call of a step must launch its five kernels. Returns
+    (rows, PointBatchNorm calls in the first step)."""
     from ao_tpu_torch.ops import gva as gva_mod
     from ao_tpu_torch.ops import knn_spatial as ks
+    from ao_tpu_torch.ops.point_bn import point_batch_norm
 
-    cap = Capture()
+    cap = Capture().wrap_path(BN_KERNELS)
     cap.wrap(ks, "knn_window", "knn_window")
     cap.wrap(ks, "merge_topk_probes", "merge_topk")
     for name in ("gva_pos", "gva_stats", "gva_eval", "gva_bwd"):
         cap.wrap(gva_mod, name, name)
+    bn_calls = []
     try:
         for label, batch in batches:
+            calls, launches = cap.counts.get("point_bn", 0), point_batch_norm.launches
             m = trainer.train_step(batch)
             torch.cuda.synchronize()
             if not (torch.isfinite(m["loss"]) and torch.isfinite(m["grad_norm"])):
                 raise RuntimeError(f"non-finite loss or gradient on the {label}")
+            calls = cap.counts["point_bn"] - calls
+            launches = point_batch_norm.launches - launches
+            if launches != 5 * calls:
+                raise RuntimeError(f"{calls} PointBatchNorm calls launched "
+                                   f"{launches} kernels in a step, not 5 each")
+            bn_calls.append(calls)
             log(t0, f"captured train kernel inputs of the {label}, (B, N) "
-                    f"{tuple(batch['mask'].shape)}, loss {float(m['loss']):.4f}")
+                    f"{tuple(batch['mask'].shape)}, loss {float(m['loss']):.4f}, "
+                    f"PointBatchNorm calls {calls} ({launches} launches)")
     finally:
         cap.restore()
     rows = hold_captured(cap, "train")
     _require(rows, TRAIN_KERNELS, "train path")
+    return rows, bn_calls[0]
+
+
+# PointBatchNorm's cases beside the paths' own calls, each held in train
+# and in eval mode: (label, B, rows a scene, C, dtype, mask, relu). The
+# benchmark cells' widths at their B=12 (S3DIS bf16 with the ReLU, ScanNet
+# f32 masked, as written), the scalar path (edge-level widths 12 and 6 on a
+# stage's edges, PT-v2m1's 3), no mask, an all-masked batch.
+BN_CASES = (
+    [("s3dis", 12, n, c, torch.bfloat16, True, True)
+     for n, c in ((81920, 48), (28672, 96), (10035, 192), (3512, 384))]
+    + [("scannet", 12, n, c, torch.float32, True, False)
+       for n, c in ((102400, 48), (35840, 96), (12544, 192), (4416, 384),
+                    (1536, 512))]
+    + [("edges", 3, 28672 * 16, 12, torch.bfloat16, True, True),
+       ("edges", 3, 10035 * 16, 6, torch.float32, True, True),
+       ("width3", 4, 4096, 3, torch.float32, True, True),
+       ("nomask", 12, 3512, 384, torch.bfloat16, None, False),
+       ("allmasked", 2, 1000, 96, torch.float32, False, True)])
+
+
+def point_bn_case(seed, B, N, C, dtype, masked, device):
+    """(x, mask, bn) of a case: x ~ N(0.3, 1.5^2), 9 rows in 10 valid (no
+    mask for None, every row masked for False), a BatchNorm1d with drawn
+    weight, bias and running statistics."""
+    rng = np.random.default_rng(seed)
+
+    def f(a):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(device)
+
+    x = f(rng.normal(size=(B, N, C)) * 1.5 + 0.3).to(dtype)
+    mask = None if masked is None else (
+        f(rng.random((B, N)) < 0.9).bool() if masked
+        else torch.zeros((B, N), dtype=torch.bool, device=device))
+    bn = torch.nn.BatchNorm1d(C).to(device)
+    with torch.no_grad():
+        bn.weight.copy_(f(rng.normal(1, 0.3, C)))
+        bn.bias.copy_(f(rng.normal(0, 0.3, C)))
+        bn.running_mean.copy_(f(rng.normal(0, 1, C)))
+        bn.running_var.copy_(f(rng.uniform(0.5, 2, C)))
+    return x, mask, bn
+
+
+def point_bn_cases(device, seed, t0):
+    """Hold PointBatchNorm's kernels on :data:`BN_CASES` as the paths'
+    calls are held (:func:`hold_captured`)."""
+    from ao_tpu_torch.ops.point_bn import point_batch_norm
+
+    rows = []
+    for i, (label, B, N, C, dtype, masked, relu) in enumerate(BN_CASES):
+        x, mask, bn = point_bn_case(seed + i, B, N, C, dtype, masked, device)
+        calls = {(i, training): ("point_bn", point_batch_norm,
+                                 [x, mask, bn, training, relu])
+                 for training in (True, False)}
+        rows += hold_captured(type("Cases", (), dict(calls=calls))(),
+                              f"point_bn cases: {label}")
+        del x, mask, bn, calls
+        torch.cuda.empty_cache()
+    log(t0, f"PointBatchNorm cases held: {len(rows)}")
     return rows
 
 
@@ -1870,7 +2128,7 @@ def scannet_phase(device, seed, t0, card="", batch_size=4, steps=3,
     fused = "compute_dtype=bfloat16" in " ".join(extra)
     with StepLaunches() as step_count, InstanceLaunches() as il:
         trainer, launches["scannet_train"] = _drive(
-            TRAIN_KERNELS if fused else ("knn_window", "merge_topk"),
+            TRAIN_KERNELS if fused else GRAPH_BN_KERNELS,
             lambda: run_scannet_train(device, options))
     inst["scannet_train"] = dict(il.counts)
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
@@ -2310,7 +2568,7 @@ def outdoor_phase(device, seed, t0, card="", batch_size=12, steps=2,
     log(t0, f"LiDAR scans: {[len(s['coord']) for s in scans]} train, "
             f"{len(test_scan['coord'])} test points; nuScenes sweep "
             f"{len(sweep['coord'])} points")
-    f32_kernels = ("knn_window", "merge_topk")
+    f32_kernels = GRAPH_BN_KERNELS
     launches, records = {}, {}
     launches["kitti_train_b"], records["kitti_train_b"] = train_run(
         f"kitti train B={batch_size} ({' '.join(extra) or 'as written'})",
@@ -2363,7 +2621,7 @@ def outdoor_phase(device, seed, t0, card="", batch_size=12, steps=2,
           flush=True)
     t = time.perf_counter()
     result, launches["nuscenes_test"] = _drive(
-        ("knn_window",), lambda: run_submit_test(
+        ("knn_window", "point_bn"), lambda: run_submit_test(
             NUSCENES_SUBMIT_CONFIG, device, seed, workdir, [
                 f"save_path={os.path.join(workdir, 'nuscenes_test')}",
                 f"data.test.data_root={os.path.join(workdir, 'nuscenes')}"]))
@@ -2396,7 +2654,7 @@ def ptv2m1_phase(device, seed, t0, rooms, card="", steps=3, batch_size=3,
     checkpointing off and on (without it B=3 does not fit the card).
     Returns (kernel rows, launches by path, train records)."""
     t_phase = time.perf_counter()
-    graph = ("knn_window", "merge_topk")
+    graph = GRAPH_BN_KERNELS
     ckpt = ["model.backbone.enable_checkpoint=True"]
     workdir, options = train_setup(rooms, batch_size=batch_size,
                                    max_steps=steps, seed=seed)
@@ -2614,7 +2872,7 @@ def sparse_phase(device, seed, t0, card="", scannet_dir=None, kitti_dir=None,
     launches["spunet_train"], records["spunet_train"] = sparse_train(
         "scannet spunet train B=12 (as written)", SPUNET_CONFIG, device,
         sparse_options(sc_root, n_sc, 12, steps, os.path.join(work, "spunet"),
-                       seed), steps, (), onecycle_of, card)
+                       seed), steps, BN_KERNELS, onecycle_of, card)
     rec = records["spunet_train"]
     if not any(n < rec["batch"] for n in rec["scenes"]):
         raise RuntimeError("no ScanNet SpUNet step was mixed by Mix3D")
@@ -2634,7 +2892,7 @@ def sparse_phase(device, seed, t0, card="", scannet_dir=None, kitti_dir=None,
     torch.manual_seed(seed)
     weight = os.path.join(work, "spunet.pt")
     torch.save(build_model(dict(cfg.model)).state_dict(), weight)
-    result, launches["spunet_test"] = _drive((), lambda: test_main([
+    result, launches["spunet_test"] = _drive(BN_KERNELS, lambda: test_main([
         "--config-file", SPUNET_CONFIG, "--device", str(device), "--options",
         f"weight={weight}", f"save_path={os.path.join(work, 'spunet_test')}",
         f"data.test.data_root={sc_root}"]))
@@ -2653,11 +2911,11 @@ def sparse_phase(device, seed, t0, card="", scannet_dir=None, kitti_dir=None,
     launches["minkunet_train"], records["minkunet_train"] = sparse_train(
         "s3dis minkunet34c train B=12 (as written)", MINKUNET_CONFIG, device,
         sparse_options(s3_root, n_s3, 12, steps, os.path.join(work, "mink"),
-                       seed), steps, (), poly_of, card)
+                       seed), steps, BN_KERNELS, poly_of, card)
     log(t0, "MinkUNet34C train steps done")
 
     kitti = kitti_options(kitti_dir, n_kitti, 8, steps, seed=seed)
-    graph = ("knn_window", "merge_topk")
+    graph = GRAPH_BN_KERNELS
     rows = capture_step(SPVCNN_CONFIG, kitti + [
         f"save_path={os.path.join(work, 'spvcnn_kernels')}"], device, graph, t0,
         "SPVCNN train step")
@@ -2815,7 +3073,7 @@ def heads_phase(device, seed, t0, card="", scannet_dir=None, s3dis_rooms=None,
     # CAC on SpUNet, then its scene test
     launches["cac_train"], records["cac_train"] = sparse_train(
         "scannet cac spunet train B=12 (as written)", CAC_CONFIG, device,
-        opts(sc_root, n_sc, 12, steps, "cac"), steps, (), onecycle_of, card)
+        opts(sc_root, n_sc, 12, steps, "cac"), steps, BN_KERNELS, onecycle_of, card)
     check_terms(records["cac_train"], CAC_TERMS, "CAC")
     rec = records["cac_train"]
     if not any(n < rec["batch"] for n in rec["scenes"]):
@@ -2827,7 +3085,7 @@ def heads_phase(device, seed, t0, card="", scannet_dir=None, s3dis_rooms=None,
     torch.manual_seed(seed)
     weight = os.path.join(work, "cac.pt")
     torch.save(build_model(dict(cfg.model)).state_dict(), weight)
-    result, launches["cac_test"] = _drive((), lambda: test_main([
+    result, launches["cac_test"] = _drive(BN_KERNELS, lambda: test_main([
         "--config-file", CAC_CONFIG, "--device", str(device), "--options",
         f"weight={weight}", f"save_path={os.path.join(work, 'cac_test')}",
         f"data.test.data_root={sc_root}"]))
@@ -2844,7 +3102,7 @@ def heads_phase(device, seed, t0, card="", scannet_dir=None, s3dis_rooms=None,
     log(t0, "CAC SpUNet train and test done")
 
     # CAC on PT-v2m2: its K1 / K2 calls held, then counted steps
-    graph = ("knn_window", "merge_topk")
+    graph = GRAPH_BN_KERNELS
     ckpt = ["model.backbone.enable_checkpoint=True", *CAC_PTV2_IN]
     torch.cuda.reset_peak_memory_stats()
     rows = capture_step(CAC_PTV2_CONFIG, opts(sc_root, n_sc, 12, 1, "cac_ptv2_kernels")
@@ -2863,7 +3121,7 @@ def heads_phase(device, seed, t0, card="", scannet_dir=None, s3dis_rooms=None,
     launches["pg_train"], records["pg_train"], trainer = sparse_train(
         "scannet pointgroup train B=12 (as written)", PG_CONFIG, device,
         opts(sc_root, n_sc, 12, steps, "pg") + [
-            "evaluate=True", f"data.val.data_root={sc_root}"], steps, (), poly_of,
+            "evaluate=True", f"data.val.data_root={sc_root}"], steps, BN_KERNELS, poly_of,
         card, entry="train_insseg", keep=True)
     check_terms(records["pg_train"], ("seg_loss", "bias_l1_loss",
                                       "bias_cosine_loss"), "PointGroup")
@@ -2872,7 +3130,7 @@ def heads_phase(device, seed, t0, card="", scannet_dir=None, s3dis_rooms=None,
     torch.cuda.empty_cache()
     launches["pg_s3dis_train"], records["pg_s3dis_train"] = sparse_train(
         "s3dis pointgroup train B=12 (as written)", PG_S3DIS_CONFIG, device,
-        opts(s3_root, n_s3, 12, steps, "pg_s3dis"), steps, (), poly_of, card,
+        opts(s3_root, n_s3, 12, steps, "pg_s3dis"), steps, BN_KERNELS, poly_of, card,
         entry="train_insseg")
     log(t0, "PointGroup done")
 
@@ -2890,7 +3148,7 @@ def heads_phase(device, seed, t0, card="", scannet_dir=None, s3dis_rooms=None,
     _, (launches["msc_train"], records["msc_train"], trainer) = fit_batch(
         msc_batches, "scannet msc train", card, lambda b: sparse_train(
             f"scannet msc train B={b}", MSC_CONFIG, device,
-            msc_opts(b, msc_steps, f"msc{b}"), msc_steps, (), onecycle_of, card,
+            msc_opts(b, msc_steps, f"msc{b}"), msc_steps, BN_KERNELS, onecycle_of, card,
             entry="train_pretrain", keep=True))
     records["msc_knn"] = time_msc_knn(trainer, card)
     del trainer
@@ -2904,7 +3162,7 @@ def heads_phase(device, seed, t0, card="", scannet_dir=None, s3dis_rooms=None,
           flush=True)
     launches["csc_train"], records["csc_train"] = sparse_train(
         f"scannet msc-v1m2 (csc) train B={rec['batch']}", CSC_CONFIG, device,
-        msc_opts(rec["batch"], 1, "csc"), 1, (), onecycle_of, card,
+        msc_opts(rec["batch"], 1, "csc"), 1, BN_KERNELS, onecycle_of, card,
         entry="train_pretrain")
     check_terms(records["csc_train"], msc_terms, "CSC")
     if records["csc_train"]["history"][0]["pairs"] <= 0:
@@ -2929,7 +3187,7 @@ PTV1_FULL_BATCH = 6
 FULL_RUN_STEPS = 2
 # the kernels of the PT-v1 segmentation paths (the unpooling's K1 and K2
 # above 2M query x key pairs, FPS at every TransitionDown)
-PTV1_KERNELS = ("knn_window", "merge_topk", "fps")
+PTV1_KERNELS = ("knn_window", "merge_topk", "fps", "point_bn")
 # ShapeNetPart's first two categories of synsetoffset2category.txt as the
 # smoke writes it (name, synset token), with all 16 named
 SHAPENET_CATEGORIES = (
@@ -3225,10 +3483,10 @@ def ptv1_phase(device, seed, t0, card="", rooms=None, test_room=None, steps=3,
     names = list(Config.fromfile(CLS_CONFIG).data.names)
     mn_root = modelnet_setup(work, names, seed=seed)
     (launches["cls_train"], records["cls_train"], trainer), held_rows = held(
-        ("fps",), "Cls26 train B=32", lambda: train_run(
+        ("fps", "point_bn"), "Cls26 train B=32", lambda: train_run(
             "modelnet40 ptv1 cls26 train B=32 (as written)", CLS_CONFIG, device,
             cls_options(mn_root, len(names), 32, steps, os.path.join(work, "cls"),
-                        seed), steps, ("fps",), multistep_of, card, keep=True))
+                        seed), steps, ("fps", "point_bn"), multistep_of, card, keep=True))
     rows += held_rows
     val = trainer.comm_info.get("val_result")
     if val is None or not (np.isfinite(val["mAcc"]) and np.isfinite(val["allAcc"])):
@@ -3237,11 +3495,13 @@ def ptv1_phase(device, seed, t0, card="", rooms=None, test_room=None, steps=3,
     del trainer
     torch.cuda.empty_cache()
     (res, launches["cls_test"]), held_rows = held(
-        ("fps",), "Cls26 test", lambda: _drive(("fps",), lambda: test_main(
-            ["--config-file", CLS_CONFIG, "--device", str(device), "--options",
-             f"weight={os.path.join(work, 'cls', 'model', 'model_last.pt')}",
-             f"save_path={os.path.join(work, 'cls_test')}",
-             f"data.test.data_root={mn_root}"])))
+        ("fps", "point_bn"), "Cls26 test", lambda: _drive(
+            ("fps", "point_bn"), lambda: test_main(
+                ["--config-file", CLS_CONFIG, "--device", str(device),
+                 "--options",
+                 f"weight={os.path.join(work, 'cls', 'model', 'model_last.pt')}",
+                 f"save_path={os.path.join(work, 'cls_test')}",
+                 f"data.test.data_root={mn_root}"])))
     rows += held_rows
     if not (np.isfinite(res["mAcc"]) and np.isfinite(res["allAcc"])):
         raise RuntimeError(f"the ClsTester gave no finite result: {res}")
@@ -3254,7 +3514,7 @@ def ptv1_phase(device, seed, t0, card="", rooms=None, test_room=None, steps=3,
         "modelnet40 spunet cls train B=16 (as written)", CLS_SPUNET_CONFIG,
         device, cls_options(mn_root, len(names), 16, steps,
                             os.path.join(work, "cls_spunet"), seed) + [
-            "evaluate=False"], steps, (), multistep_of, card, keep=True)
+            "evaluate=False"], steps, BN_KERNELS, multistep_of, card, keep=True)
     sites = voxel_sites(next(iter(trainer.train_loader)))
     records["cls_spunet_sites"] = sites
     print(f"modelnet40 spunet cls: level-0 sites a scene {sites} (no GridSample "
@@ -3300,6 +3560,8 @@ FULL_RUN_TEST_VIEWS = 1
 # 3-NN interpolation above 2M query x key pairs (2-probe curve search: K1,
 # then K2's fused merge)
 UNPOOL_KERNELS = ("knn_window", "merge_topk")
+# and Swin3D's PointBatchNorm (its stem and its head)
+SWIN3D_KERNELS = UNPOOL_KERNELS + ("point_bn",)
 
 
 class SwinSteps:
@@ -3344,11 +3606,11 @@ def window_summary(stats):
 
 
 def scannet_scene_test(config, device, sc_root, work, seed, label, card,
-                       views=None):
+                       views=None, kernels=UNPOOL_KERNELS):
     """Whole-scene testing of the ScanNet val room through the test entry
     point with the config's first ``views`` views (all where None) and
     random weights from ``seed``, driven with the launch counts set to 0
-    just before and read just after, the K1 / K2 calls of its first
+    just before and read just after, the calls of ``kernels`` in its first
     fragments held; votes checked. Returns (launches, kernel rows, the
     scene's record)."""
     from ao_tpu_torch.models import build_model
@@ -3362,8 +3624,8 @@ def scannet_scene_test(config, device, sc_root, work, seed, label, card,
     aug = cfg.data.test.test_cfg.aug_transform[:views]
     save = os.path.join(work, f"{label}_test")
     (result, launches), rows = held(
-        UNPOOL_KERNELS, f"{label} scene test", lambda: _drive(
-            UNPOOL_KERNELS, lambda: test_main([
+        kernels, f"{label} scene test", lambda: _drive(
+            kernels, lambda: test_main([
                 "--config-file", config, "--device", str(device), "--options",
                 f"weight={weight}", f"save_path={save}",
                 f"data.test.data_root={sc_root}",
@@ -3421,7 +3683,7 @@ def swin3d_phase(device, seed, t0, card="", scannet_dir=None, steps=3,
     # scenes into one of at most max_points, so a mixed step holds fewer
     batch, rows = fit_batch(batches, "scannet swin3d train unmixed", card, lambda b: (
         capture_step(SWIN3D_CONFIG, opts(b, 1, f"kernels_b{b}") + ["mix_prob=0"],
-                     device, UNPOOL_KERNELS, t0, f"Swin3D train step B={b}")))
+                     device, SWIN3D_KERNELS, t0, f"Swin3D train step B={b}")))
     print(f"scannet swin3d: B={batch} fits unmixed; captured step peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; card {card}",
           flush=True)
@@ -3429,7 +3691,7 @@ def swin3d_phase(device, seed, t0, card="", scannet_dir=None, steps=3,
     with SwinSteps() as seen:
         launches["train"], records["train"], trainer = train_run(
             f"scannet swin3d train B={batch} (as written)", SWIN3D_CONFIG, device,
-            opts(batch, steps, "train"), steps, UNPOOL_KERNELS, onecycle_of, card,
+            opts(batch, steps, "train"), steps, SWIN3D_KERNELS, onecycle_of, card,
             keep=True)
     groups = trainer.optimizer.param_groups
     n_tables = sum("table" in n for n, _ in trainer.model.named_parameters())
@@ -3464,7 +3726,7 @@ def swin3d_phase(device, seed, t0, card="", scannet_dir=None, steps=3,
         lambda b: train_run(
             f"scannet swin3d large train B={b} (unmixed)", SWIN3D_LARGE_CONFIG,
             device, opts(b, 1, f"large_b{b}") + ["mix_prob=0"], 1,
-            UNPOOL_KERNELS, onecycle_of, card))
+            SWIN3D_KERNELS, onecycle_of, card))
     print(f"scannet swin3d large: B={large} fits unmixed; peak memory "
           f"{records['large_train']['peak_gib']:.2f} GiB, step "
           f"{records['large_train']['step_seconds'][0]:.4f} s; card {card}",
@@ -3474,7 +3736,8 @@ def swin3d_phase(device, seed, t0, card="", scannet_dir=None, steps=3,
     log(t0, "Swin3D large step done")
 
     launches["test"], held_rows, records["test"] = scannet_scene_test(
-        SWIN3D_CONFIG, device, sc_root, work, seed, "swin3d", card, views)
+        SWIN3D_CONFIG, device, sc_root, work, seed, "swin3d", card, views,
+        SWIN3D_KERNELS)
     rows += held_rows
     torch.cuda.empty_cache()
     log(t0, f"Swin3D phase done in {time.perf_counter() - t_phase:.1f} s")
@@ -3695,13 +3958,14 @@ def octformer_phase(device, seed, t0, card="", scannet_dir=None, steps=3,
 def _wrappers():
     """The kernels' wrappers (the wrapper itself where a counting shim of
     :class:`InstanceLaunches` stands in its place)."""
-    from ao_tpu_torch.ops import gva, knn_spatial, sampling
+    from ao_tpu_torch.ops import gva, knn_spatial, point_bn, sampling
 
     ws = {"knn_window": knn_spatial.knn_window,
           "merge_topk": knn_spatial.merge_topk_probes,
           "gva_eval": gva.gva_eval,
           "gva_pos": gva.gva_pos, "gva_stats": gva.gva_stats,
-          "gva_bwd": gva.gva_bwd, "fps": sampling.farthest_point_sampling}
+          "gva_bwd": gva.gva_bwd, "fps": sampling.farthest_point_sampling,
+          "point_bn": point_bn.point_batch_norm}
     return {n: getattr(w, "__wrapped__", w) for n, w in ws.items()}
 
 
@@ -4096,12 +4360,12 @@ def pointcontrast_phase(device, seed, t0, card="",
                    f"data.train.data_root={root}", f"batch_size={batch}",
                    "max_steps=2", "num_worker=8", f"seed={seed}",
                    "enable_tensorboard=False"]
-        trainer = run_train(device, options, POINTCONTRAST_CONFIG,
-                            "train_pretrain")
-        return trainer, torch.cuda.max_memory_allocated() / 2**30
+        trainer, launches = _drive(BN_KERNELS, lambda: run_train(
+            device, options, POINTCONTRAST_CONFIG, "train_pretrain"))
+        return trainer, torch.cuda.max_memory_allocated() / 2**30, launches
 
-    batch, (trainer, peak_gb) = fit_batch(batches, "pointcontrast train", card,
-                                          train)
+    batch, (trainer, peak_gb, launches) = fit_batch(
+        batches, "pointcontrast train", card, train)
     hist = trainer.history
     for r in hist:
         if not (np.isfinite(r["loss"]) and np.isfinite(r["nce_loss"])
@@ -4116,7 +4380,7 @@ def pointcontrast_phase(device, seed, t0, card="",
           f"{[round(r['step_seconds'], 4) for r in hist]}, data wait "
           f"{[round(r['data_seconds'], 4) for r in hist]}; peak memory "
           f"{peak_gb:.2f} GiB; {changed}/{n_params} parameter tensors changed;"
-          f" card {card}", flush=True)
+          f" launches {launches}; card {card}", flush=True)
     del trainer
     torch.cuda.empty_cache()
     log(t0, "pointcontrast phase done")
@@ -4401,7 +4665,7 @@ def ddp_phase(device, seed, t0, card="", gloo=True, faults=(), nccl=(),
         lv_failures, _, lv_launches, _ = ddp_case(
             "lovasz", LOVASZ_CONFIG, lv_base, work,
             [(name, world, backend) for name, world, backend, *_ in runs],
-            faults, t0, card, kernels=UNPOOL_KERNELS, repeat=False)
+            faults, t0, card, kernels=GRAPH_BN_KERNELS, repeat=False)
         failures += lv_failures
         launches.update(lv_launches)
     if failures:
@@ -4463,7 +4727,7 @@ SWITCHES = (
     ("AO_GVA_SLAB", "0", 3, TRAIN_KERNELS, "gathered"),
     ("AO_SLAB_W", "512", 2, TRAIN_KERNELS, "slab512"),
     ("AO_EXACT_KNN", "1", 2, TRAIN_KERNELS, "exact"),
-    ("AO_GVA_FUSED", "0", 2, ("knn_window", "merge_topk"), "unfused"),
+    ("AO_GVA_FUSED", "0", 2, GRAPH_BN_KERNELS, "unfused"),
 )
 # the switches under which no stage takes the slab path: their GVA calls
 # read gathered rows at every N
@@ -4778,10 +5042,13 @@ def run(device, seed, t0, room_size=(4.8, 4.0, 2.6), train_steps=5, card="",
     _, coord, feat, mask = small
     small_train = dict(coord=coord, feat=feat, mask=mask,
                        segment=torch.where(mask, 0, -1).to(torch.int32))
-    rows += train_kernel_phase(trainer, [("train phase's batch", train_batch),
-                                         ("small batch", small_train)], t0)
+    train_rows, bn_calls = train_kernel_phase(
+        trainer, [("train phase's batch", train_batch),
+                  ("small batch", small_train)], t0)
+    rows += train_rows
     del trainer
     torch.cuda.empty_cache()
+    point_bn_cases(device, seed, t0)
     log(t0, "train kernel phase done")
 
     torch.cuda.reset_peak_memory_stats()
@@ -4789,6 +5056,12 @@ def run(device, seed, t0, room_size=(4.8, 4.0, 2.6), train_steps=5, card="",
         trainer, train_launches = _drive(TRAIN_KERNELS,
                                          lambda: run_train(device, options))
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    bn_step = train_steps_count.per_step()["point_bn"]
+    if bn_step != 5 * bn_calls:
+        raise RuntimeError(f"point_bn: {bn_step} launches a train step, not 5 x "
+                           f"{bn_calls} PointBatchNorm calls")
+    print(f"train: point_bn {bn_step:.0f} launches a train step (5 x "
+          f"{bn_calls} PointBatchNorm calls)", flush=True)
     changed, n_params = check_train(trainer, train_steps)
     val = check_val(trainer)
     print(f"train: val (random weights, {train_steps} steps) mIoU "
@@ -5015,6 +5288,10 @@ def main():
         help="run only phase 17's single process and, for each N, N processes "
              "over NCCL on N cards held against it (needs N cards), and no "
              "kernel record")
+    parser.add_argument(
+        "--point-bn", action="store_true",
+        help="run only PointBatchNorm's kernels on BN_CASES (train and eval, "
+             "held and timed as in phase 4), and no kernel record")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA card (torch.cuda.is_available() is "
@@ -5074,11 +5351,14 @@ def main():
                   nccl=args.ddp_nccl, group_of_one=False)
     if args.leftovers:
         leftovers_phase(torch.device("cuda"), args.seed, t0, card)
+    if args.point_bn:
+        point_bn_cases(torch.device("cuda"), args.seed, t0)
     if (args.scannet_batch is not None or args.outdoor_batch is not None
             or args.sparse or args.heads or args.ptv1 or args.swin3d
             or args.stratified or args.octformer or args.pointcontrast
             or args.ddp or args.ddp_faults or args.ddp_nccl
-            or args.lovasz_spread is not None or args.leftovers):
+            or args.lovasz_spread is not None or args.leftovers
+            or args.point_bn):
         faulthandler.cancel_dump_traceback_later()
         print(f"card: {card}", flush=True)
         return 0

@@ -482,7 +482,8 @@ def test_port_sources_name_no_jax_no_ao_tpu_no_cpp_extension():
                      r"|import flax|from flax|import optax|from optax"
                      r"|torch/extension\.h|import triton")
     names = {os.path.relpath(f, ROOT) for f in files}
-    for src in ("gva_pos.cu", "gva_stats.cu", "gva_bwd.cu", "gva_tile.cuh"):
+    for src in ("gva_pos.cu", "gva_stats.cu", "gva_bwd.cu", "gva_tile.cuh",
+                "point_bn.cu"):
         assert f"ao_tpu_torch/csrc/{src}" in names
     for mod in ("engines/train.py", "tools/train.py", "models/losses/misc.py",
                 "utils/optimizer.py", "utils/scheduler.py",
@@ -528,7 +529,7 @@ def test_port_sources_name_no_jax_no_ao_tpu_no_cpp_extension():
                 "ops/ball_query.py", "utils/cache.py", "utils/path.py",
                 "utils/ply.py", "utils/visualization.py", "utils/events.py",
                 "utils/checkpoint.py", "utils/misc.py",
-                "models/losses/lovasz.py"):
+                "models/losses/lovasz.py", "ops/point_bn.py"):
         assert f"ao_tpu_torch/{mod}" in names
     # the one place that names an ao_tpu module: the module name that the
     # config loader serves from the port's copy (a sys.modules key, never
